@@ -1,0 +1,87 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+it runs on CUDA unless asked for the CPU, and on CPU tensors its kernel
+wrappers run their plain versions without counting a launch."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "openrec_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "openrec_tpu_torch").rglob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import openrec_tpu_torch, openrec_tpu_torch.ops._build\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'openrec_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+
+
+def test_entry_points_need_cuda_or_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from openrec_tpu_torch import (BPR, CachedDotProductScorer, convert,
+                                   resolve_device)
+    from openrec_tpu_torch.modules.embedding import embedding_init
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BPR(4, 4, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CachedDotProductScorer(None, 4, 4, lambda p, i: p, lambda p, i: p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax({"w": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        embedding_init(3, 2)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_count_no_kernel_launch():
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    before = (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches)
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(500, 8)).astype(np.float32))
+    bt.bucket_max_scores(u, v, None, bucket=2)
+    bt.bucket_max2_scores(u, v, None, bucket=2)
+    bt.bucket_score_topk(u, v, None, 10, recall_target=0.99, per_bucket=2)
+    assert (bt.bucket_max_scores.launches,
+            bt.bucket_max2_scores.launches) == before == (0, 0)
