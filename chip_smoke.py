@@ -5,12 +5,16 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels from
-     openrec_tpu_torch/csrc with nvcc (set-up time, printed).
+     openrec_tpu_torch/csrc with nvcc, one process per source, all at once
+     (set-up time, printed).
   2. hold each kernel against its plain PyTorch version on the card: f32
      and bf16, D in {50, 64}, a ragged catalog tail, bucket = 1, a split
-     bucket range, and the serving shapes. Values within rtol=atol=1e-5;
-     an id may differ only where the two picks score within that tolerance
-     (a different summation order); K2's second slot as id sets.
+     bucket range, and the serving shapes (K1/K2); for K3 k in {1, 100,
+     128, 129, 1000}, k == I on a 300-item catalog, B and I off the
+     kernel's tiling, duplicated item rows (exact ties), tables that do not
+     start on a 16-byte boundary, and both serving shapes. Values within rtol=atol=1e-5; an id may differ only where the
+     two picks score within that tolerance (a different summation order);
+     K2's second slot as id sets.
   3. the serving path at full width: BPR at the Amazon catalog of
      examples/serving_retrieval.py (99,473 users x 450,166 items x 64,
      bf16 serve tables) with random weights made from --seed by numpy and
@@ -21,20 +25,38 @@ Phases, in order; any failure raises and exits non-zero:
      both kernels' launch counters must move, and one eval_metrics batch
      must match the dense metrics. Then the same at the BPR-CiteULike shape
      of bench.py (5,551 x 16,980 x 50, fp32 tables).
-  4. time each kernel at the serving shape with CUDA events (median of 30
-     after warm-up) beside its plain version, a library yardstick
-     (torch.matmul + torch.topk, which the port never calls) and its bound
-     (bytes at 3.35 TB/s, operations at the peak for the input type).
+  4. time each kernel with CUDA events (median of 30 after warm-up) beside
+     its plain version, a library yardstick (torch.matmul + torch.topk,
+     which the port never calls) and its bound (bytes at 3.35 TB/s,
+     operations at the peak for the input type): K1/K2 at the Amazon
+     serving shape, K3 at the CiteULike retrieval shape of phase 5 and at
+     the Amazon shape.
+  5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
+     1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
+     records with each item redrawn from a long-tailed popularity (see
+     `citeulike_data`). Trainer.train, with val eval and a checkpoint every
+     200 steps: host-fed (Dataset.pairwise, 2 threads, 100 steps a call),
+     then device-sampled (DevicePairwiseSampler, 200 steps a call).
+     Checks: the mean loss of each 200 steps falls in both feeds and val
+     AUC rises above its step-0 value; on one stacked
+     sample the share of negatives that are positives is within
+     10 x density^(rounds+1); 20 steps on the card equal the same 20 steps
+     on the CPU (rtol 1e-4, atol 1e-6); the checkpoint restored into a
+     fresh model scores as the trained model does; 8 requests of 256
+     users with top-100 by `ops.fused_score_topk` (K3) on the restored
+     tables match topk_xla, and K3's launch counter reads 8. Prints
+     steps/s and examples/s of both feeds and the device's idle share
+     under torch.profiler.
 
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
-{"kernels": [...]} line, and last the line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-With --out FILE, the full record (every check, latency, profile and
-timing) is also written there as JSON.
+{"training": ...} line, a {"kernels": [...]} line (K1, K2, K3), and last
+the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}. With --out FILE, the full record (every check, latency,
+profile and timing) is also written there as JSON.
 """
 
 from __future__ import annotations
@@ -43,6 +65,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -174,6 +197,99 @@ def phase_compare(torch, bt, gen, dev):
                 fail(f"{kname} {name}: {bad} id mismatches that are not "
                      "near-ties")
     return errs, report
+
+
+K3_CASES = [
+    # name, B, I, D, dtype, k, layout: "" | "dup" (item 3j+1 repeats item
+    # 3j: exact ties) | "offset" (the table is a view one row into its
+    # storage, so it does not start on a 16-byte boundary)
+    ("K3 f32 D=50 k=100 ragged", 37, 5_003, 50, "float32", 100, ""),
+    ("K3 bf16 D=64 k=1", 70, 20_001, 64, "bfloat16", 1, ""),
+    ("K3 f32 D=64 k=128", 33, 12_345, 64, "float32", 128, ""),
+    ("K3 bf16 D=50 k=129", 9, 7_777, 50, "bfloat16", 129, ""),
+    ("K3 f32 D=64 k=1000", 70, 30_000, 64, "float32", 1000, ""),
+    ("K3 f32 D=50 k==I", 11, 300, 50, "float32", 300, ""),
+    ("K3 bf16 D=64 duplicated rows", 40, 9_000, 64, "bfloat16", 100, "dup"),
+    ("K3 f32 D=50 offset view", 20, 3_001, 50, "float32", 100, "offset"),
+    ("K3 bf16 D=50 offset view", 20, 3_001, 50, "bfloat16", 100, "offset"),
+    ("K3 citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", K, ""),
+    ("K3 amazon shape", BATCH, AMAZON["items"], 64, "bfloat16", K, ""),
+]
+
+
+def check_topk(torch, vals, ids, want_v, want_i, full, what):
+    """(max_abs_err, non-tie id mismatches, tie id mismatches) of a top-k
+    against a reference top-k of the same fp32 scores `full` [B, I]: shape
+    and dtype, finite values within rtol=atol=TOL, ids in range, best
+    first, each value the score at its id, and ids equal except where both
+    picks score within TOL."""
+    if vals.shape != want_v.shape or ids.dtype != torch.int32 \
+            or vals.dtype != torch.float32:
+        fail(f"{what}: output {tuple(vals.shape)}/{vals.dtype}/{ids.dtype}")
+    if not torch.isfinite(vals).all():
+        fail(f"{what}: non-finite values")
+    if ids.min() < 0 or ids.max() >= full.shape[1]:
+        fail(f"{what}: an id lies outside the catalog")
+    if (vals[:, 1:] > vals[:, :-1]).any():
+        fail(f"{what}: values are not best first")
+
+    def near(x, y):
+        return (x - y).abs() <= TOL + TOL * y.abs()
+
+    err = (vals - want_v).abs().max().item()
+    if not near(vals, want_v).all():
+        fail(f"{what}: values differ beyond rtol=atol={TOL}: max {err}")
+    at = full.gather(1, ids.long())
+    if not near(at, vals).all():
+        fail(f"{what}: a value is not the fp32 score at its id")
+    diff = ids != want_i.to(ids.dtype)
+    tie = diff & near(at, want_v)
+    return err, int((diff & ~tie).sum()), int(tie.sum())
+
+
+def phase_compare_k3(torch, tk, gen, dev):
+    """K3 (ops.fused_score_topk) against fused_topk_plain on card tensors."""
+    err_max, report = 0.0, []
+    for name, B, I, D, dt, k, layout in K3_CASES:
+        dtype = getattr(torch, dt)
+        u = torch.randn(B, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(I, D, generator=gen, device=dev)
+        b = torch.randn(I, generator=gen, device=dev)
+        dup = layout == "dup"
+        if dup:     # item 3j+1 repeats item 3j, bias and all: exact ties
+            n = v[1::3].shape[0]
+            v[1::3] = v[0::3][:n]
+            b[1::3] = b[0::3][:n]
+        v = v.to(dtype).contiguous()
+        if layout == "offset":
+            v = torch.cat([v[:1], v])[1:]
+            if v.data_ptr() % 16 == 0:
+                fail(f"{name}: the view is 16-byte aligned")
+        want_v, want_i = tk.fused_topk_plain(u, v, b, k)
+        vals, ids = tk.fused_score_topk(u, v, b, k)
+        torch.cuda.synchronize()
+        full = tk.dot_scores(u, v, b)
+        err, bad, ties = check_topk(torch, vals, ids, want_v, want_i, full,
+                                    name)
+        err_max = max(err_max, err)
+        Kb, G, n_slices, tps, smem = tk.fused_geometry(
+            B, I, D, k, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        line = dict(case=name, kernel="K3", B=B, I=I, D=D, dtype=dt, k=k,
+                    Kb=Kb, users_per_block=G, slices=n_slices,
+                    smem_bytes=smem, max_abs_err=err,
+                    id_mismatch_not_tie=bad, id_mismatch_tie=ties)
+        if dup:   # the planted twins must resolve to the smaller id
+            twins = (ids % 3 == 1)[:, 1:] & (ids[:, 1:] - 1 != ids[:, :-1])
+            line["twin_after_twin"] = not bool(twins.any())
+            if twins.any():
+                fail(f"{name}: a planted tie did not put the smaller id "
+                     "first")
+        print("compare", json.dumps(line), flush=True)
+        report.append(line)
+        if bad:
+            fail(f"K3 {name}: {bad} id mismatches that are not near-ties")
+    return err_max, report
 
 
 # ------------------------------------------------------------ phase 3
@@ -341,6 +457,256 @@ def profile_requests(torch, scorer, params, rng, users, latency, n=5):
     return out
 
 
+# ------------------------------------------------------------ phase 5
+
+TRAIN = dict(dim=50, batch=1000, lr=1e-3, host_steps=400, host_k=100,
+             eval_every=200, device_steps=400, device_k=200,
+             timed_host_calls=5, timed_device_calls=5, profiled_calls=2)
+
+
+def citeulike_data(loaders, seed):
+    """synthetic_citeulike()'s records, users, sizes and 80/10/10 split,
+    with every record's item redrawn from a long-tailed popularity
+    p(rank r) ~ (r + 10)^-0.9 over a seeded permutation of the catalog.
+    synthetic_citeulike() draws items uniformly and independently of
+    users, so its val split holds nothing a model could learn and val AUC
+    stays at 0.5 whatever the trainer does; real CiteULike's items are
+    long-tailed, and BPR's unregularised item bias learns that."""
+    raw = loaders.synthetic_citeulike(seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    items = raw["total_items"]
+    p = 1.0 / (np.arange(items) + 10.0) ** 0.9
+    order = rng.permutation(items)
+    for key in ("train_data", "val_data", "test_data"):
+        data = raw[key].copy()
+        data["item_id"] = order[rng.choice(items, len(data), p=p / p.sum())]
+        raw[key] = data
+    return raw
+
+
+def profile_device(torch, fn, calls, wall_per_call_ms):
+    """Device busy time per call by kernel over `calls` calls under
+    torch.profiler, and the idle share of the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.key] = per.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3 / calls
+            launches += e.count
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_busy_ms_per_call": busy,
+            "device_ops_per_call": launches / calls,
+            "idle_share": 1.0 - busy / wall_per_call_ms,
+            "top_device_ms_per_call": {k[:80]: v for k, v in top}}
+
+
+def timed_calls(torch, fn, calls):
+    """Wall ms per call over `calls` synchronised calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / calls
+
+
+def phase_train(torch, port, seed, dev):
+    """The training path at full width, then retrieval through K3 from the
+    restored tables. Returns the record; raises on any failed check."""
+    from openrec_tpu_torch import checkpoint as ckpt_lib
+    from openrec_tpu_torch.data import (Dataset, DevicePairwiseSampler,
+                                        PairwiseSampler, loaders)
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    cfg = TRAIN
+    counters = (bt.bucket_max_scores, bt.bucket_max2_scores,
+                tk.fused_score_topk)
+    for fn in counters:         # the path's run starts here
+        fn.launches = 0
+    raw = citeulike_data(loaders, seed)
+    U, I, D = raw["total_users"], raw["total_items"], cfg["dim"]
+    train_ds = Dataset(raw["train_data"], U, I, seed=seed)
+    val_ds = Dataset(raw["val_data"], U, I, seed=seed)
+    val = val_ds.evaluation(BATCH, excl_datasets=[train_ds],
+                            device_masks=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = port.BPR(U, I, D, D, device=dev, generator=gen)
+    out = {"config": {"users": U, "items": I, "dim": D,
+                      "batch": cfg["batch"], "lr": cfg["lr"],
+                      "optimizer": "lazy_adam",
+                      "train_records": len(raw["train_data"])}}
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        log_file = Path(ckpt_dir) / "train.jsonl"
+        trainer = port.Trainer(model, lr=cfg["lr"], seed=seed,
+                               save_model_dir=ckpt_dir,
+                               log_file=str(log_file), device=dev)
+        auc0 = float(trainer.evaluate(val, at=(50, 100))["AUC"])
+
+        def train(batches, steps, k, what):
+            """Trainer.train with a val eval (and a checkpoint) every
+            eval_every steps; returns the JSONL records it wrote."""
+            done = len(log_file.read_text().splitlines()) \
+                if log_file.exists() else 0
+            trainer.train(steps, batches, eval_samplers={"val": val},
+                          eval_interval=cfg["eval_every"],
+                          save_interval=cfg["eval_every"],
+                          steps_per_call=k, at=(50, 100), verbose=False)
+            log = [json.loads(line) for line in
+                   log_file.read_text().splitlines()[done:]]
+            for rec in log:
+                print(f"train {what}", json.dumps(rec), flush=True)
+            losses = [rec["loss"] for rec in log]
+            if len(losses) < 2 or not np.isfinite(losses).all() \
+                    or not losses[-1] < losses[0]:
+                fail(f"{what} loss did not fall: {losses}")
+            return log
+
+        log = train(train_ds.pairwise(batch_size=cfg["batch"],
+                                      num_parallel_calls=2),
+                    cfg["host_steps"], cfg["host_k"], "host-fed")
+        auc = log[-1]["eval"]["val"]["AUC"]
+        if not auc > auc0:
+            fail(f"val AUC did not rise: {auc0} at step 0, {auc} at "
+                 f"step {trainer.global_step}")
+        out["host_fed"] = {"val_auc_step0": auc0, "log": log}
+
+        # the checkpoint restored into a fresh model scores alike
+        ckpt = ckpt_lib.latest_checkpoint(ckpt_dir)
+        fresh = port.BPR(U, I, D, D, device=dev)
+        restored = port.Trainer(fresh, seed=seed, save_model_dir=ckpt_dir,
+                                device=dev)
+        restored.restore(ckpt)
+        users = torch.arange(0, U, 7, device=dev)
+        with torch.no_grad():
+            same = torch.equal(fresh.score({"user_id": users}),
+                               model.score({"user_id": users}))
+        if not same or int(restored.opt_state.count) != trainer.global_step:
+            fail("the restored checkpoint does not score as the trained "
+                 "model does")
+        out["restore"] = {"checkpoint": Path(ckpt).name, "score_equal": same}
+
+        # device-sampled training on the same trainer
+        sampler = DevicePairwiseSampler(train_ds.store, cfg["batch"],
+                                        device=dev)
+        out["device_sampled"] = {
+            "membership": sampler.membership,
+            "log": train(sampler, cfg["device_steps"], cfg["device_k"],
+                         "device-sampled")}
+
+        # the share of sampled negatives that are positives
+        stacked = sampler.sample_stacked(gen, cfg["device_k"])
+        u_np = stacked["user_id"].cpu().numpy()
+        n_np = stacked["n_item_id"].cpu().numpy()
+        p_np = stacked["p_item_id"].cpu().numpy()
+        store = train_ds.store
+        density = len(store._pos_keys) / (U * I)
+        bad = int(store.is_positive(u_np, n_np).sum())
+        allowed = 10 * density ** (sampler.reject_rounds + 1) * n_np.size
+        out["negatives"] = {"drawn": int(n_np.size), "positives": bad,
+                            "density": density,
+                            "allowed": allowed}
+        if not store.is_positive(u_np, p_np).all() or bad > allowed:
+            fail(f"sampled negatives: {bad} positives among {n_np.size}, "
+                 f"allowed {allowed}")
+
+        # 20 steps on the card == the same 20 steps on the CPU
+        start = {k: v.detach().clone() for k, v in model.params().items()}
+        batches = [s for s, _ in zip(PairwiseSampler(
+            train_ds.store, cfg["batch"], seed=seed + 7), range(20))]
+        cpu_model = port.BPR(U, I, D, D, device="cpu")
+        cpu_model.load_params({k: v.cpu() for k, v in start.items()})
+        card_model = port.BPR(U, I, D, D, device=dev)
+        card_model.load_params(start)
+        t_cpu = port.Trainer(cpu_model, lr=cfg["lr"], device="cpu")
+        t_card = port.Trainer(card_model, lr=cfg["lr"], device=dev)
+        l_cpu = t_cpu.train_step_multi(batches)
+        l_card = t_card.train_step_multi(batches).cpu()
+        worst = 0.0
+        for key, p in cpu_model.params().items():
+            q = card_model.params()[key].detach().cpu()
+            worst = max(worst, (q - p.detach()).abs().max().item())
+            if not torch.allclose(q, p.detach(), rtol=1e-4, atol=1e-6):
+                fail(f"card and CPU disagree on '{key}' after 20 steps: "
+                     f"max {worst}")
+        if not torch.allclose(l_card, l_cpu, rtol=1e-4, atol=1e-6):
+            fail("card and CPU losses disagree over 20 steps")
+        out["card_vs_cpu"] = {"steps": 20, "max_abs_param_diff": worst}
+
+        # retrieval through K3 from the restored tables
+        table_u = fresh.user_embed.detach()
+        table_v = fresh.item_embed.detach().contiguous()
+        table_b = fresh.item_bias.detach().reshape(-1).contiguous()
+        rng = np.random.default_rng(seed + 3)
+        reqs = [torch.as_tensor(rng.integers(0, U, BATCH), device=dev)
+                for _ in range(REQUESTS)]
+        answers = [tk.fused_score_topk(table_u[r].contiguous(), table_v,
+                                       table_b, K) for r in reqs]
+        torch.cuda.synchronize()
+        k3_launches = tk.fused_score_topk.launches
+        checks = []
+        for r, (vals, ids) in zip(reqs, answers):
+            rows = table_u[r]
+            want_v, want_i = tk.topk_xla(rows, table_v, table_b, K)
+            full = tk.dot_scores(rows, table_v, table_b)
+            checks.append(check_topk(torch, vals, ids, want_v, want_i, full,
+                                     "retrieval"))
+        bad = sum(c[1] for c in checks)
+        out["retrieval"] = {"requests": REQUESTS, "users": BATCH, "k": K,
+                            "k3_launches": k3_launches,
+                            "max_abs_err": max(c[0] for c in checks),
+                            "id_mismatch_not_tie": bad,
+                            "id_mismatch_tie": sum(c[2] for c in checks)}
+        print("retrieval", json.dumps(out["retrieval"]), flush=True)
+        if k3_launches != REQUESTS or bad:
+            fail(f"retrieval: K3 launches {k3_launches} (want {REQUESTS}), "
+                 f"{bad} id mismatches that are not near-ties")
+
+    # throughput of both feeds, then the device's idle share
+    feed = train_ds.pairwise(batch_size=cfg["batch"], num_parallel_calls=2)
+    host_it = iter(feed)
+
+    def host_call():
+        trainer.train_step_multi([next(host_it)
+                                  for _ in range(cfg["host_k"])]).cpu()
+
+    def device_call():
+        trainer.train_steps_device(sampler, cfg["device_k"]).cpu()
+
+    speed = {}
+    for name, fn, k, calls in (
+            ("host_fed", host_call, cfg["host_k"], cfg["timed_host_calls"]),
+            ("device_sampled", device_call, cfg["device_k"],
+             cfg["timed_device_calls"])):
+        ms = timed_calls(torch, fn, calls)
+        speed[name] = {"steps_per_call": k, "calls": calls,
+                       "ms_per_call": ms,
+                       "steps_per_s": k / ms * 1e3,
+                       "examples_per_s": k * cfg["batch"] / ms * 1e3}
+        speed[name]["profile"] = profile_device(
+            torch, fn, cfg["profiled_calls"], ms)
+        print(f"train {name}: {speed[name]['steps_per_s']:.1f} steps/s, "
+              f"{speed[name]['examples_per_s']:.0f} examples/s, device "
+              f"idle {speed[name]['profile']['idle_share']:.3f}", flush=True)
+    feed.stop()
+    out["speed"] = speed
+    # ... and ends here: K3 ran on the 8 requests and nowhere else
+    out["launches"] = dict(zip(("K1", "K2", "K3"),
+                               (fn.launches for fn in counters)))
+    if out["launches"] != {"K1": 0, "K2": 0, "K3": REQUESTS}:
+        fail(f"training path launches {out['launches']}")
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -410,6 +776,60 @@ def phase_time(torch, bt, gen, dev, errs, launches):
     return entries
 
 
+def time_k3(torch, tk, gen, dev, B, I, D, dtype):
+    """K3 at one shape: kernel, plain version and library yardstick times
+    (CUDA-event medians) and the bound for this shape."""
+    dt = getattr(torch, dtype)
+    u = (torch.rand(B, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
+    v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
+    b = torch.randn(I, generator=gen, device=dev) * 0.01
+    ms = time_ms(torch, lambda: tk.fused_score_topk(u, v, b, K))
+    plain_ms = time_ms(torch, lambda: tk.fused_topk_plain(u, v, b, K),
+                       runs=5, warmup=1)
+    clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+    library_ms = time_ms(torch, lambda: torch.topk(
+        torch.matmul(u, v.T) + b, K, dim=1))
+    # u and V read once in their type, the f32 bias once, the [B, k] f32
+    # values and i32 ids written once; 2*B*I*D dot-product operations
+    nbytes = (B * D + I * D) * u.element_size() + 4 * I + 8 * B * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * B * I * D / PEAK_OPS[dtype] * 1e3
+    Kb, G, n_slices, tps, smem = tk.fused_geometry(
+        B, I, D, K, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "card_after_timing": clocks,
+            "shape": {"B": B, "I": I, "D": D, "dtype": dtype, "k": K,
+                      "Kb": Kb, "users_per_block": G, "slices": n_slices,
+                      "tiles_per_slice": tps, "smem_bytes": smem}}
+
+
+def phase_time_k3(torch, tk, gen, dev, err):
+    """K3's entry of the kernels line: its numbers at the CiteULike
+    retrieval shape of phase 5 (fp32 tables), with the Amazon serving
+    shape (bf16) beside them. `launches` is filled in by phase 5."""
+    entry = {"name": "K3 fused_topk_kernel", "route": "cuda",
+             "source": "openrec_tpu_torch/csrc/fused_topk.cu",
+             "replaces": "openrec_tpu/ops/topk.py:58",
+             "replaces_function": "_fused_topk_kernel",
+             "launches": None, "max_abs_err": err}
+    entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
+                         CITEULIKE["dim"], "float32"))
+    entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
+                              AMAZON["dim"], "bfloat16")
+    # the same dot products with 32-entry lists (k = 1): what the list
+    # merges of k = 100 add to the kernel's time
+    u = torch.rand(BATCH, AMAZON["dim"], generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.rand(AMAZON["items"], AMAZON["dim"], generator=gen,
+                   device=dev).to(torch.bfloat16)
+    entry["amazon"]["ms_at_k1"] = time_ms(
+        torch, lambda: tk.fused_score_topk(u, v, None, 1))
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -430,6 +850,7 @@ def main(argv=None):
     import openrec_tpu_torch as port
     from openrec_tpu_torch.ops import _build
     from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
 
     # fp32 products stay fp32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -454,6 +875,9 @@ def main(argv=None):
 
     # phase 2
     errs, compare_report = phase_compare(torch, bt, gen, dev)
+    errs["K3"], k3_report = phase_compare_k3(torch, tk, gen, dev)
+    compare_report += k3_report
+    torch.cuda.empty_cache()
 
     # phase 3
     serve = {}
@@ -464,15 +888,31 @@ def main(argv=None):
     # phase 4
     kernels = phase_time(torch, bt, gen, dev, errs,
                          serve["amazon"]["launches"])
+    kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"]))
+    torch.cuda.empty_cache()
+
+    # phase 5
+    train = phase_train(torch, port, args.seed, dev)
+    kernels[-1]["launches"] = train["launches"]["K3"]
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": smi, "build_s": build_s, "compare": compare_report,
-             "serve": serve, "kernels": kernels}, indent=1))
+             "serve": serve, "training": train, "kernels": kernels},
+            indent=1))
     print(json.dumps({"requests": {name: {
         "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
         "launches": s["launches"]} for name, s in serve.items()}}))
+    print(json.dumps({"training": {
+        "val_auc_step0": train["host_fed"]["val_auc_step0"],
+        "val_auc": train["host_fed"]["log"][-1]["eval"]["val"]["AUC"],
+        "val_auc_device_sampled":
+            train["device_sampled"]["log"][-1]["eval"]["val"]["AUC"],
+        "speed": {k: {m: v[m] for m in ("steps_per_s", "examples_per_s")}
+                  | {"idle_share": v["profile"]["idle_share"]}
+                  for k, v in train["speed"].items()},
+        "retrieval": train["retrieval"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

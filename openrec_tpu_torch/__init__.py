@@ -8,22 +8,39 @@ request it raises. The Pallas TPU kernels become hand-written CUDA
 kernels for Hopper (`csrc/`), built with nvcc at first use; on a CPU
 tensor each kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far, the serving path: BPR -> CachedDotProductScorer ->
-bucket_score_topk -> the bucket-max kernels, with checkpoints, parameter
-conversion from the JAX package and the eval metrics.
+Ported so far, the BPR-CiteULike main path end to end:
+  - data: InteractionStore, PairwiseSampler (numpy path; the C++ feeder
+    is not ported), EvaluationSampler, Dataset, Prefetcher, pinned
+    non_blocking `to_device`, the CiteULike loaders, and the on-device
+    DevicePairwiseSampler (bitmap / searchsorted membership);
+  - training: BPR, lazy_adam / keras_adam / lazy_adagrad, Trainer (the
+    K-step loops, on-device sampling, train / evaluate, checkpoints in
+    the JAX format, warm start, torch.profiler);
+  - metrics: ranking, chunked eval, the streaming means;
+  - serving: CachedDotProductScorer -> bucket_score_topk -> the
+    bucket-max kernels K1/K2, and the exact fused score + top-k kernel K3
+    (`ops.fused_score_topk`);
+  - parameter and optimizer-state conversion from the JAX package.
 """
 
 __version__ = "0.1.0"
 
 from openrec_tpu_torch.device import resolve_device
-from openrec_tpu_torch.convert import params_from_jax, params_to_numpy
+from openrec_tpu_torch.convert import (opt_state_from_jax,
+                                       opt_state_to_numpy, params_from_jax,
+                                       params_to_numpy)
 from openrec_tpu_torch.models import BPR, Recommender
 from openrec_tpu_torch.ops import (
-    bucket_max2_scores, bucket_max_scores, bucket_score_topk, topk_approx,
-    topk_xla)
+    bucket_max2_scores, bucket_max_scores, bucket_score_topk,
+    fused_score_topk, topk_approx, topk_xla)
 from openrec_tpu_torch.metrics import (
-    AUC, NDCG, Precision, Recall, chunked_dot_eval_metrics,
-    metrics_from_counts)
+    AUC, NDCG, DeviceDictMean, DeviceMean, DictMean, Mean, Precision, Recall,
+    chunked_dot_eval_metrics, metrics_from_counts)
 from openrec_tpu_torch.serving import CachedDotProductScorer
 from openrec_tpu_torch.modules import (
     censor_max_norm, censor_norm, embedding_init, embedding_lookup, losses)
+from openrec_tpu_torch.data import (
+    Dataset, DevicePairwiseSampler, EvaluationSampler, InteractionStore,
+    PairwiseSampler)
+from openrec_tpu_torch.training import (Trainer, keras_adam, lazy_adagrad,
+                                        lazy_adam)

@@ -7,7 +7,12 @@ semantics (load only entries whose name AND shape match). The two packages
 read each other's files.
 
 Parameters here are a flat `{path: tensor}` dict (`convert.params_from_jax`,
-`module.state_dict()`) or any nesting of dicts/lists of tensors or arrays.
+`module.state_dict()`) or any nesting of dicts/NamedTuples/lists of tensors
+or arrays. A `Trainer` checkpoint is the tree {"params": ..., "opt_state":
+...}, written under the keys the JAX `Trainer.save` writes
+(`openrec_tpu/checkpoint.py:24-39`): `params/<name>`, `opt_state/count`,
+`opt_state/mu/<name>`, `opt_state/nu/<name>` (lazy_adagrad:
+`opt_state/<name>`).
 """
 
 from __future__ import annotations

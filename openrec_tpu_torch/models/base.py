@@ -9,6 +9,8 @@ params pytree into pure functions; here the parameters live on the
   loss, aux = model.loss(batch)         # autograd-able
   scores = model.score(batch)           # full-catalog serving
   model.load_params(flat)               # {path: tensor} from JAX / npz
+  grads = model.grad_transform(grads, batch)   # trainer hooks, identity
+  model.post_step(batch)                       # by default
 """
 
 from __future__ import annotations
@@ -27,6 +29,17 @@ class Recommender(nn.Module):
     def score(self, batch: dict) -> torch.Tensor:
         """Full-catalog scores [B, total_items] for serving/evaluation."""
         raise NotImplementedError
+
+    def grad_transform(self, grads: dict, batch: dict) -> dict:
+        """Per-model gradient post-processing between autograd and the
+        optimizer (`openrec_tpu/models/base.py:366-370`). Default:
+        identity."""
+        return grads
+
+    def post_step(self, batch: dict) -> None:
+        """Applied after each optimizer step, IN PLACE on the parameters
+        (e.g. norm censoring; `openrec_tpu/models/base.py:360-364` returns
+        new params instead). Default: nothing."""
 
     def params(self) -> dict:
         """Flat {path: parameter}, keyed like the JAX params pytree."""

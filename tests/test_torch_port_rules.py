@@ -60,9 +60,14 @@ def test_importing_port_loads_no_jax():
 def test_entry_points_need_cuda_or_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    from openrec_tpu_torch import (BPR, CachedDotProductScorer, convert,
-                                   resolve_device)
+    from openrec_tpu_torch import (BPR, CachedDotProductScorer, Trainer,
+                                   convert, resolve_device)
+    from openrec_tpu_torch.data import (DevicePairwiseSampler,
+                                        InteractionStore, device_iterator,
+                                        to_device)
     from openrec_tpu_torch.modules.embedding import embedding_init
+    from openrec_tpu_torch.ops import fused_score_topk
+    from openrec_tpu_torch.training import keras_adam, lazy_adagrad, lazy_adam
     with pytest.raises(RuntimeError, match="CUDA"):
         BPR(4, 4, 2, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -71,17 +76,45 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         convert.params_from_jax({"w": np.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         embedding_init(3, 2)
+    cpu_model = BPR(4, 4, 2, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cpu_model)
+    store = InteractionStore(np.array([(0, 1), (1, 2)], dtype=[
+        ("user_id", np.int32), ("item_id", np.int32)]), 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePairwiseSampler(store, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_device({"a": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(device_iterator(iter([{"a": np.zeros(2)}])))
+    # the optimizers keep their state beside the parameters: CUDA-default
+    # parameters cannot be made, and an empty tree asks for the default
+    for tx in (lazy_adam(), keras_adam()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tx.init(BPR(4, 4, 2, 2).params())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tx.init({})
+        assert tx.init(cpu_model.params()).count.device.type == "cpu"
+    assert lazy_adagrad().init(cpu_model.params())["user_embed"].device \
+        == torch.device("cpu")
+    # a kernel wrapper follows its tensors: the default device's tensors
+    # cannot be made either
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_score_topk(embedding_init(3, 2), embedding_init(5, 2), None, 2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cpu_tensors_count_no_kernel_launch():
     from openrec_tpu_torch.ops import bucketed_topk as bt
-    before = (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches)
+    from openrec_tpu_torch.ops import fused_score_topk
+    before = (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches,
+              fused_score_topk.launches)
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(500, 8)).astype(np.float32))
     bt.bucket_max_scores(u, v, None, bucket=2)
     bt.bucket_max2_scores(u, v, None, bucket=2)
     bt.bucket_score_topk(u, v, None, 10, recall_target=0.99, per_bucket=2)
-    assert (bt.bucket_max_scores.launches,
-            bt.bucket_max2_scores.launches) == before == (0, 0)
+    fused_score_topk(u, v, None, 10)
+    assert (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches,
+            fused_score_topk.launches) == before == (0, 0, 0)
