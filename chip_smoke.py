@@ -12,9 +12,12 @@ Phases, in order; any failure raises and exits non-zero:
      bucket range, and the serving shapes (K1/K2); for K3 k in {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
-     start on a 16-byte boundary, and both serving shapes. Values within rtol=atol=1e-5; an id may differ only where the
-     two picks score within that tolerance (a different summation order);
-     K2's second slot as id sets.
+     start on a 16-byte boundary, all-equal scores (K3's rescan branch),
+     a catalog of fewer than 8*Kb items, and both serving shapes. Values
+     within rtol=atol=1e-5; an id may differ only where the two picks
+     score within that tolerance (a different summation order); K2's
+     second slot as id sets. Every user must have at least min(k, I) K3
+     candidates.
   3. the serving path at full width: BPR at the Amazon catalog of
      examples/serving_retrieval.py (99,473 users x 450,166 items x 64,
      bf16 serve tables) with random weights made from --seed by numpy and
@@ -30,7 +33,8 @@ Phases, in order; any failure raises and exits non-zero:
      which the port never calls) and its bound (bytes at 3.35 TB/s,
      operations at the peak for the input type): K1/K2 at the Amazon
      serving shape, K3 at the CiteULike retrieval shape of phase 5 and at
-     the Amazon shape.
+     the Amazon shape, each of K3's four launches (K1 bound pass, tau,
+     filter, final) on its own too.
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
@@ -202,7 +206,9 @@ def phase_compare(torch, bt, gen, dev):
 K3_CASES = [
     # name, B, I, D, dtype, k, layout: "" | "dup" (item 3j+1 repeats item
     # 3j: exact ties) | "offset" (the table is a view one row into its
-    # storage, so it does not start on a 16-byte boundary)
+    # storage, so it does not start on a 16-byte boundary) | "zero" (zero
+    # table and bias: all scores equal, so more than C candidates pass and
+    # the final kernel rescans; the answer is ids 0 .. k-1)
     ("K3 f32 D=50 k=100 ragged", 37, 5_003, 50, "float32", 100, ""),
     ("K3 bf16 D=64 k=1", 70, 20_001, 64, "bfloat16", 1, ""),
     ("K3 f32 D=64 k=128", 33, 12_345, 64, "float32", 128, ""),
@@ -212,6 +218,8 @@ K3_CASES = [
     ("K3 bf16 D=64 duplicated rows", 40, 9_000, 64, "bfloat16", 100, "dup"),
     ("K3 f32 D=50 offset view", 20, 3_001, 50, "float32", 100, "offset"),
     ("K3 bf16 D=50 offset view", 20, 3_001, 50, "bfloat16", 100, "offset"),
+    ("K3 f32 D=50 all-equal scores", 30, 5_000, 50, "float32", 100, "zero"),
+    ("K3 bf16 D=64 I < 8*Kb", 25, 700, 64, "bfloat16", 100, ""),
     ("K3 citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", K, ""),
     ("K3 amazon shape", BATCH, AMAZON["items"], 64, "bfloat16", K, ""),
 ]
@@ -260,6 +268,9 @@ def phase_compare_k3(torch, tk, gen, dev):
             n = v[1::3].shape[0]
             v[1::3] = v[0::3][:n]
             b[1::3] = b[0::3][:n]
+        if layout == "zero":
+            v.zero_()
+            b.zero_()
         v = v.to(dtype).contiguous()
         if layout == "offset":
             v = torch.cat([v[:1], v])[1:]
@@ -268,17 +279,28 @@ def phase_compare_k3(torch, tk, gen, dev):
         want_v, want_i = tk.fused_topk_plain(u, v, b, k)
         vals, ids = tk.fused_score_topk(u, v, b, k)
         torch.cuda.synchronize()
+        count = tk.fused_score_topk.last_count
         full = tk.dot_scores(u, v, b)
         err, bad, ties = check_topk(torch, vals, ids, want_v, want_i, full,
                                     name)
         err_max = max(err_max, err)
-        Kb, G, n_slices, tps, smem = tk.fused_geometry(
-            B, I, D, k, torch.cuda.get_device_properties(dev)
-            .multi_processor_count)
+        plan = tk.fused_geometry(
+            B, I, D, k, v.element_size(),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
         line = dict(case=name, kernel="K3", B=B, I=I, D=D, dtype=dt, k=k,
-                    Kb=Kb, users_per_block=G, slices=n_slices,
-                    smem_bytes=smem, max_abs_err=err,
-                    id_mismatch_not_tie=bad, id_mismatch_tie=ties)
+                    **plan._asdict(), count_min=int(count.min()),
+                    count_max=int(count.max()),
+                    rescan_users=int((count > plan.C).sum()),
+                    max_abs_err=err, id_mismatch_not_tie=bad,
+                    id_mismatch_tie=ties)
+        if line["count_min"] < min(k, I):
+            fail(f"{name}: a user has {line['count_min']} candidates, fewer "
+                 f"than min(k, I) = {min(k, I)}")
+        if layout == "zero" and (line["rescan_users"] != B or not torch.equal(
+                ids, torch.arange(k, device=dev, dtype=ids.dtype)
+                .expand(B, -1))):
+            fail(f"{name}: not every user took the rescan branch and "
+                 "returned ids 0 .. k-1")
         if dup:   # the planted twins must resolve to the smaller id
             twins = (ids % 3 == 1)[:, 1:] & (ids[:, 1:] - 1 != ids[:, :-1])
             line["twin_after_twin"] = not bool(twins.any())
@@ -776,41 +798,71 @@ def phase_time(torch, bt, gen, dev, errs, launches):
     return entries
 
 
+def time_k3_stages(torch, tk, u, v, b, runs=30, warmup=3):
+    """CUDA-event median ms of each of K3's four stages: each run launches
+    all four in order, one at a time, with an event between two stages
+    (a stage's time includes the host's launch gap wherever the host is
+    slower than the card)."""
+    run, _ = tk._prepare(u, v, b, K)
+    out = (torch.empty(u.shape[0], K, device=u.device),
+           torch.empty(u.shape[0], K, device=u.device, dtype=torch.int32))
+    for _ in range(warmup):
+        run(0, 3, out)
+    torch.cuda.synchronize()
+    ms = [[] for _ in tk.STAGES]
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(tk.STAGES) + 1)]
+        ev[0].record()
+        for i, e in enumerate(ev[1:]):
+            run(i, i, out)
+            e.record()
+        ev[-1].synchronize()
+        for i, x in enumerate(ms):
+            x.append(ev[i].elapsed_time(ev[i + 1]))
+    return {name: float(np.median(x)) for name, x in zip(tk.STAGES, ms)}
+
+
 def time_k3(torch, tk, gen, dev, B, I, D, dtype):
     """K3 at one shape: kernel, plain version and library yardstick times
-    (CUDA-event medians) and the bound for this shape."""
+    (CUDA-event medians), its four stages, device time by kernel under
+    the profiler, and the bound for this shape."""
     dt = getattr(torch, dtype)
     u = (torch.rand(B, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
     v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
     b = torch.randn(I, generator=gen, device=dev) * 0.01
     ms = time_ms(torch, lambda: tk.fused_score_topk(u, v, b, K))
+    stages_ms = time_k3_stages(torch, tk, u, v, b)
     plain_ms = time_ms(torch, lambda: tk.fused_topk_plain(u, v, b, K),
                        runs=5, warmup=1)
     clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     library_ms = time_ms(torch, lambda: torch.topk(
         torch.matmul(u, v.T) + b, K, dim=1))
+    profile = profile_device(
+        torch, lambda: tk.fused_score_topk(u, v, b, K), 10, ms)
     # u and V read once in their type, the f32 bias once, the [B, k] f32
     # values and i32 ids written once; 2*B*I*D dot-product operations
     nbytes = (B * D + I * D) * u.element_size() + 4 * I + 8 * B * K
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * B * I * D / PEAK_OPS[dtype] * 1e3
-    Kb, G, n_slices, tps, smem = tk.fused_geometry(
-        B, I, D, K, torch.cuda.get_device_properties(dev)
-        .multi_processor_count)
+    plan = tk.fused_geometry(
+        B, I, D, K, v.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "card_after_timing": clocks,
+            "library_ms": library_ms, "stages_ms": stages_ms,
+            "profile": profile, "card_after_timing": clocks,
             "shape": {"B": B, "I": I, "D": D, "dtype": dtype, "k": K,
-                      "Kb": Kb, "users_per_block": G, "slices": n_slices,
-                      "tiles_per_slice": tps, "smem_bytes": smem}}
+                      **plan._asdict()}}
 
 
 def phase_time_k3(torch, tk, gen, dev, err):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
     shape (bf16) beside them. `launches` is filled in by phase 5."""
-    entry = {"name": "K3 fused_topk_kernel", "route": "cuda",
+    entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
+             "route": "cuda",
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
              "replaces": "openrec_tpu/ops/topk.py:58",
              "replaces_function": "_fused_topk_kernel",
@@ -819,14 +871,10 @@ def phase_time_k3(torch, tk, gen, dev, err):
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
                               AMAZON["dim"], "bfloat16")
-    # the same dot products with 32-entry lists (k = 1): what the list
-    # merges of k = 100 add to the kernel's time
-    u = torch.rand(BATCH, AMAZON["dim"], generator=gen, device=dev).to(
-        torch.bfloat16)
-    v = torch.rand(AMAZON["items"], AMAZON["dim"], generator=gen,
-                   device=dev).to(torch.bfloat16)
-    entry["amazon"]["ms_at_k1"] = time_ms(
-        torch, lambda: tk.fused_score_topk(u, v, None, 1))
+    for name, t in (("citeulike", entry), ("amazon", entry["amazon"])):
+        print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
+              f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
+              "stages " + json.dumps(t["stages_ms"]), flush=True)
     return entry
 
 

@@ -1,4 +1,4 @@
-// Exact fused score + top-k for Hopper.
+// Exact fused score + top-k for Hopper: a threshold, a filter, one sort.
 //
 // Replaces the Pallas TPU kernel
 //   openrec_tpu/ops/topk.py::_fused_topk_kernel   (K3, wrapper fused_score_topk)
@@ -7,55 +7,47 @@
 // writing the [B, I] scores. The result is ordered by the total order
 // (score descending, item id ascending), which is what lax.top_k's merge of
 // concat([best, tile]) gives: among equal scores the smaller id comes first.
-// Items t >= I are masked by the kernel itself (nothing is padded in device
-// memory), so no id >= I is ever returned, even when k == I.
+// Items t >= I are masked by the kernels themselves (nothing is padded in
+// device memory), so no id >= I is ever returned, even when k == I.
 //
-// What bounds it on an H100 at the serving shape (B = 256 users, the
-// 450,166 x 64 bf16 catalog, k = 100): ~57.6 MB of table read once, ~22 us
-// at 3.35 TB/s; the 14.8 GFLOP of dot products are ~15 us on the bf16 tensor
-// cores but ~0.22 ms on the CUDA cores in fp32, where this design runs
-// them (as K1 does). So it is bound by FMA issue, tile staging and the
-// running-list merges, not by bytes; tensor cores (wgmma) are a later step.
+// What bounds it on an H100: the function reads u and V once and does
+// 2*B*I*D operations. At the CiteULike retrieval shape (B 256, I 16,980,
+// D 50, f32, k 100) that is 0.435 GFLOP, ~6.5 us at the 67 TFLOP/s fp32
+// CUDA-core peak; at the Amazon shape (I 450,166, D 64, bf16) 57.6 MB of
+// table, ~18 us at 3.35 TB/s. The score passes below run the products on
+// the CUDA cores in fp32 and read V twice, so FMA issue bounds them. What
+// made the earlier design of this kernel lose to matmul + torch.topk was
+// not the products but the selection: a running top-k list per user and
+// catalog slice, sorted and merged 32 candidates at a time, a second
+// launch merging the slices' lists, and a block barrier per tile that made
+// every warp wait for the slowest warp's merges.
 //
-// Design. The TPU kernel walks the whole catalog in sequence for one user
-// block. Here a block owns G users and one contiguous slice of the catalog,
-// so that (#slices x #user groups) blocks fill the 132 SMs; a second launch
-// merges each user's per-slice lists.
-//   * G = 4 * warps users per block. Their vectors sit in shared memory as
-//     fp32 [G][Dp] (Dp = D rounded up to 4, zero padded). Item tiles of 128
-//     rows are staged as fp32 [128][Sv] (row stride Sv = Dp or Dp + 4, so
-//     that Sv/4 is odd and the float4 row reads of 8 lanes hit distinct
-//     banks). A tile is one contiguous run of V, loaded in 16-byte chunks
-//     (element by element where V is not 16-byte aligned, or at the run's
-//     ragged end). Staging is latency-bound if a thread waits on one load
-//     at a time (a 128 x 64 bf16 tile is 32 element loads a thread), so
-//     each thread keeps kChunks chunk loads in flight, and the next tile's
-//     first chunks are in flight while this tile's dot products run.
-//   * Warp w owns users 4w..4w+3 outright: each lane computes 4 users x 4
-//     items (items lane + 32q) from float4 loads, then the warp filters
-//     each user's 128 scores by that user's current k-th key and appends
-//     the survivors (compacted with ballots) to the user's pending buffer.
-//     Whenever 32 are pending, it sorts them with a shuffle bitonic sort
-//     and merges them into the user's running top-Kb list in shared memory
-//     (Kb = k rounded up to 32). The merge places each element by rank
-//     (list entries move by the number of better candidates, moved from the
-//     tail down; candidates land at index + rank), so it touches only the
-//     part of the list from the first insertion on. No block-wide barrier
-//     guards the merge: only the tile load is shared.
-//   * The merges, not the dot products, set this kernel's time, so fewer
-//     candidates reach them: a merge waits for 32 pending (a sort and a
-//     list merge cost as much for one late survivor as for 32), a slice
-//     ends with one flush of the rest, and a candidate must beat the k-th
-//     entry, not the Kb-th.
-//     The slices of one user also share a bound on its k-th score in
-//     global memory: after each merge a block raises it to its list's k-th
-//     score (an integer atomic max), and every block drops the scores below
-//     it. Any slice's k-th score is at most the user's true k-th score, so
-//     this drops no item of the result (ties at the bound are kept).
-//   * Second pass (when the catalog was split): one warp per user starts
-//     from slice 0's list and merges the other slices' sorted lists chunk
-//     by chunk, stopping in each list at the first entry that does not beat
-//     the running k-th key.
+// Design: no running lists. Four stages on the caller's stream, stages 2-4
+// from one C call (openrec_k3):
+//   1. Bound pass: the K1 kernel (bucket_max.cu) as it is, at a bucket that
+//      leaves L >= 8 * Kb buckets (Kb = k rounded up to 32): [B, L] bucket
+//      maxima and their argmax ids, which are distinct items.
+//   2. tau_kernel, one block per user: rescores every argmax id < I with
+//      item_score(), the filter's own arithmetic, and takes tau, the k-th
+//      largest of these L values (a radix select; -inf when fewer than k ids
+//      are real items). k distinct items score >= tau in the filter's
+//      numbers, so the k-th best score is >= tau, and every item of the
+//      result, ties at the k-th place included, passes s >= tau. K1's own
+//      maxima are summed in another order: an item could clear them in K1's
+//      numbers and miss them in the filter's, so they are not used.
+//   3. filter_kernel: the score tiles of the earlier design (a block owns 32
+//      users and one contiguous catalog slice; slices x user groups fill the
+//      card once), with a register epilogue: keep s >= tau, and compact the
+//      kept (score, id) of each 32 items with a ballot into cand[u][0, C),
+//      behind one atomicAdd on count[u]. Counting goes on past C.
+//   4. final_kernel, one block per user: when count <= C, one block-wide
+//      bitonic sort in shared memory of the candidates (padded to a power
+//      of two) and the first k out. With distinct scores about k + k^2/(2L)
+//      items pass, and C is the smallest power of two >= 4 * Kb, so
+//      count > C needs mass ties at tau. Then the same block rescans the
+//      catalog exactly: a running top-Kb kept through chunks of C - Kb
+//      scores from item_score(), each step one sort of C entries. A slow
+//      path inside the kernel, never a fall-back.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,13 +59,14 @@
 namespace {
 
 constexpr int kTile = 128;           // items per tile
-constexpr int kPending = 64;         // pending candidates a user can hold
-constexpr int kScratch = 8 * kPending + 64;  // per-warp words: 4 users'
-                                             // pending (v, id), merge 2x32
-constexpr int kMergeWarps = 4;       // users per block of the second pass
 constexpr int kChunks = 4;           // 16-byte tile chunks a thread has in flight
+constexpr int kFilterThreads = 256;  // 8 warps of 4 users
+constexpr int kUsers = kFilterThreads / 8;  // users per filter block
+constexpr int kFilterBlocksPerSm = 2;  // topk.py's _FILTER_BLOCKS_PER_SM
+constexpr int kTauThreads = 1024;    // ~1 rescored id a thread at L ~ 1-2K
+constexpr int kFinalThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kNoId = INT_MAX;       // id of an empty list entry (score -inf)
+constexpr int kNoId = INT_MAX;       // id of padding (score -inf)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -188,155 +181,139 @@ __device__ __forceinline__ void prefetch_tile(const T* __restrict__ v,
   }
 }
 
-// *addr = max(*addr, x) for floats (no NaN), as an integer atomic: the
-// bits of non-negative floats order as ints, those of negative floats in
-// reverse as unsigned ints.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float x) {
-  if (x >= 0.f) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(x));
-  } else {
-    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(x));
-  }
-}
-
 // The result's total order: score descending, then id ascending.
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-// Sort one (score, id) per lane across the warp, best first (bitonic).
-__device__ __forceinline__ void warp_sort(float& v, int& id, int lane) {
+// The score of item t for the user whose fp32 vector is us[0, D): fmaf over
+// d = 0 .. D-1 in order, starting from 0, then the bias added last. Each
+// accumulator of filter_kernel runs this same sequence (its zero-padded
+// columns add fmaf(0, 0, acc) == acc), so the two give equal scores for one
+// item. The tau and rescan code score items only through this helper, so
+// that their numbers are the filter's own. VEC: rows are whole 16-byte
+// chunks (D * sizeof(T) % 16 == 0, v 16-byte aligned), loaded as such; the
+// sums are the same.
+template <typename T, bool VEC>
+__device__ __forceinline__ float item_score(const float* us,
+                                            const T* __restrict__ v,
+                                            const float* __restrict__ bias,
+                                            int D, int t) {
+  const T* row = v + (long long)t * D;
+  float acc = 0.f;
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T);
+    const uint4* q = reinterpret_cast<const uint4*>(row);
+    for (int c = 0; c < D / E; ++c) {
+      const uint4 w = __ldg(q + c);
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, v, stride);
-      const int oi = __shfl_xor_sync(kFull, id, stride);
-      const bool up = (lane & size) == 0;      // this run ends best first
-      const bool lower = (lane & stride) == 0;
-      const bool take = (lower == up) ? better(ov, oi, v, id)
-                                      : better(v, id, ov, oi);
-      if (take) {
-        v = ov;
-        id = oi;
-      }
+      for (int x = 0; x < E; ++x)
+        acc = fmaf(us[c * E + x], chunk_elem<T>(w, x), acc);
     }
+  } else {
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) acc = fmaf(us[d], to_f32(row[d]), acc);
   }
+  return acc + (bias != nullptr ? bias[t] : 0.f);
 }
 
-// Merge 32 sorted candidates (lane j holds the j-th best; empty entries are
-// (-inf, kNoId)) into the sorted list (bv, bi)[0, Kb) of one user, keeping
-// the Kb best; nothing happens unless the best candidate beats entry k - 1.
-// cs_v / cs_i: 32 words of warp scratch. Warp-synchronous.
-__device__ void warp_merge(float* bv, int* bi, int Kb, int k, float cv,
-                           int ci, float* cs_v, int* cs_i, int lane) {
-  const float best_v = __shfl_sync(kFull, cv, 0);
-  const int best_i = __shfl_sync(kFull, ci, 0);
-  if (!better(best_v, best_i, bv[k - 1], bi[k - 1])) return;
-  cs_v[lane] = cv;
-  cs_i[lane] = ci;
-  // rank of this candidate in the list: entries better than it
-  int lo = 0, hi = Kb;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (better(bv[mid], bi[mid], cv, ci)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+// Float <-> unsigned key of the same order (no NaN): a negative float has
+// all its bits flipped, a non-negative one its sign bit set.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float key_float(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// Stage 2, one block per user b: rescore the user's L bucket argmax ids in
+// place of K1's maxima (ids >= I: -inf), set tau[b] to the k-th largest of
+// them (k <= L), and zero count[b] for the filter.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kTauThreads)
+tau_kernel(const T* __restrict__ u, const T* __restrict__ v,
+           const float* __restrict__ bias, int I, int D, int L, int k,
+           float* bmax_v, const int* __restrict__ bmax_i,
+           float* __restrict__ tau, int* __restrict__ count) {
+  extern __shared__ float4 smem4[];
+  float* us = reinterpret_cast<float*>(smem4);  // [D]
+  __shared__ unsigned hist[256];
+  __shared__ unsigned pick[2];                  // digit, rank within it
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (int d = threadIdx.x; d < D; d += blockDim.x)
+    us[d] = to_f32(u[(long long)b * D + d]);
+  __syncthreads();
+  float* vals = bmax_v + (long long)b * L;
+  const int* ids = bmax_i + (long long)b * L;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const int t = ids[j];
+    vals[j] = (t >= 0 && t < I) ? item_score<T, VEC>(us, v, bias, D, t)
+                                : -CUDART_INF_F;
   }
-  const int first = __shfl_sync(kFull, lo, 0);  // first entry that moves
-  __syncwarp();
-  // Entry e moves to e + (#candidates better than it). New indices are
-  // never below old ones, so chunks are moved from the tail down, each
-  // read whole before any lane writes.
-  for (int base = ((Kb - 1) >> 5) << 5; base >= (first & ~31); base -= 32) {
-    const int e = base + lane;
-    float ev = 0.f;
-    int ei = 0;
-    int dst = Kb;
-    if (e >= first && e < Kb) {
-      ev = bv[e];
-      ei = bi[e];
-      int a = 0, b = 32;
-      while (a < b) {
-        const int m = (a + b) >> 1;
-        if (better(cs_v[m], cs_i[m], ev, ei)) {
-          a = m + 1;
-        } else {
-          b = m;
+  // Radix select of the k-th largest key, 8 bits a pass from the top:
+  // rank is the wanted key's rank among the keys that match prefix.
+  unsigned prefix = 0u, mask = 0u, rank = (unsigned)k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int e = threadIdx.x; e < 256; e += blockDim.x) hist[e] = 0u;
+    __syncthreads();  // also puts every vals write before these reads
+    for (int j = threadIdx.x; j < L; j += blockDim.x) {
+      const unsigned key = order_key(vals[j]);
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      // lane l holds digits 255 - 8l down to 248 - 8l; incl counts the
+      // keys at or above the lane's lowest digit
+      unsigned c = 0u;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) c += hist[255 - 8 * lane - x];
+      unsigned incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      unsigned above = incl - c;
+      if (above < rank && rank <= incl) {  // exactly one lane
+        for (int x = 0; x < 8; ++x) {
+          const unsigned h = hist[255 - 8 * lane - x];
+          if (above + h >= rank) {
+            pick[0] = 255 - 8 * lane - x;
+            pick[1] = rank - above;
+            break;
+          }
+          above += h;
         }
       }
-      dst = e + a;
     }
-    __syncwarp();
-    if (dst < Kb) {
-      bv[dst] = ev;
-      bi[dst] = ei;
-    }
-    __syncwarp();
+    __syncthreads();
+    prefix |= pick[0] << shift;
+    mask |= 255u << shift;
+    rank = pick[1];
   }
-  const int pos = lane + lo;
-  if (ci != kNoId && pos < Kb) {
-    bv[pos] = cv;
-    bi[pos] = ci;
+  if (threadIdx.x == 0) {
+    tau[b] = key_float(prefix);
+    count[b] = 0;
   }
-  __syncwarp();
 }
 
-// Sort the first min(n, 32) pending candidates (pv, pi) of one user and
-// merge them into its list (bv, bi)[0, Kb); the pending entries [32, n)
-// (n < 64) move down to [0, n - 32). Returns the count left pending.
-// Warp-synchronous.
-__device__ int flush_pending(float* pv, int* pi, int n, float* bv, int* bi,
-                             int Kb, int k, float* cs_v, int* cs_i,
-                             int lane) {
-  __syncwarp();
-  float cv = -CUDART_INF_F;
-  int ci = kNoId;
-  if (lane < n) {
-    cv = pv[lane];
-    ci = pi[lane];
-  }
-  const bool more = lane + 32 < n;
-  float mv = 0.f;
-  int mi = 0;
-  if (more) {
-    mv = pv[lane + 32];
-    mi = pi[lane + 32];
-  }
-  __syncwarp();
-  if (more) {
-    pv[lane] = mv;
-    pi[lane] = mi;
-  }
-  warp_sort(cv, ci, lane);
-  warp_merge(bv, bi, Kb, k, cv, ci, cs_v, cs_i, lane);
-  __syncwarp();  // the moved entries are seen before the next append
-  return n > 32 ? n - 32 : 0;
-}
-
+// Stage 3: the scores of G users x one catalog slice, tile by tile; every
+// score s >= tau of its user is appended to the user's candidates.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(256, 2)
-fused_topk_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                  const float* __restrict__ bias, int B, int I, int D, int Dp,
-                  int Sv, int Kb, int k, int tiles_per_slice, int width,
-                  float* __restrict__ dst_v, int* __restrict__ dst_i,
-                  float* __restrict__ thr_g) {
+__global__ void __launch_bounds__(kFilterThreads, kFilterBlocksPerSm)
+filter_kernel(const T* __restrict__ u, const T* __restrict__ v,
+              const float* __restrict__ bias, int B, int I, int D, int Dp,
+              int Sv, int tiles_per_slice, int C,
+              const float* __restrict__ tau, int* __restrict__ count,
+              float* __restrict__ cand_v, int* __restrict__ cand_i) {
   extern __shared__ float4 smem4[];
   const int G = blockDim.x >> 3;               // 4 users per warp
   float* us = reinterpret_cast<float*>(smem4);  // [G][Dp]
   float* vs = us + G * Dp;                      // [kTile][Sv]
-  float* bv = vs + kTile * Sv;                  // [G][Kb]
-  int* bi = reinterpret_cast<int*>(bv + G * Kb);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // per warp: the pending candidates of its 4 users, then the merge scratch
-  float* pend_v = reinterpret_cast<float*>(bi + G * Kb) + warp * kScratch;
-  int* pend_i = reinterpret_cast<int*>(pend_v + 4 * kPending);
-  float* cs_v = pend_v + 8 * kPending;
-  int* cs_i = reinterpret_cast<int*>(cs_v + 32);
-  int pending[4] = {0, 0, 0, 0};  // pending count of each user (warp-uniform)
 
   const int user0 = blockIdx.y * G;
   const int n_tiles = (I + kTile - 1) / kTile;
@@ -349,10 +326,13 @@ fused_topk_kernel(const T* __restrict__ u, const T* __restrict__ v,
     us[e] = (b < B && d < D) ? to_f32(u[(long long)b * D + d]) : 0.f;
   }
   for (int e = threadIdx.x; e < kTile * Sv; e += blockDim.x) vs[e] = 0.f;
-  for (int e = threadIdx.x; e < G * Kb; e += blockDim.x) {
-    bv[e] = -CUDART_INF_F;
-    bi[e] = kNoId;
-  }
+  // the thresholds of the warp's 4 users
+  const int b_lane = user0 + warp * 4 + lane;
+  const float tau_lane =
+      (lane < 4 && b_lane < B) ? tau[b_lane] : CUDART_INF_F;
+  float thr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) thr[i] = __shfl_sync(kFull, tau_lane, i);
 
   // Thread tid stages the tile's 16-byte chunks tid + j * nthreads,
   // kChunks loads in flight; the first kChunks of the next tile (and its
@@ -384,11 +364,6 @@ fused_topk_kernel(const T* __restrict__ u, const T* __restrict__ v,
     if (t + 1 < tile_end)
       prefetch_tile<T, VEC>(v, bias, I, D, t + 1, lane, pre, pre_b);
 
-    // lane i < 4: the shared k-th score bound of the warp's user i (read
-    // now, used after the dot products)
-    const int b_lane = user0 + warp * 4 + lane;
-    const float g_lane = (lane < 4 && b_lane < B) ? __ldcg(thr_g + b_lane)
-                                                 : -CUDART_INF_F;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -416,171 +391,183 @@ fused_topk_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int g = warp * 4 + i;
-      if (user0 + g >= B) continue;  // warp-uniform
-      float* ubv = bv + g * Kb;
-      int* ubi = bi + g * Kb;
-      float* pv = pend_v + i * kPending;
-      int* pi = pend_i + i * kPending;
-      int count = pending[i];
-      float thr_v = ubv[k - 1];  // changes only when this user's list does
-      int thr_i = ubi[k - 1];
-      const float g_thr = __shfl_sync(kFull, g_lane, i);
+      const int b = user0 + warp * 4 + i;
+      if (b >= B) continue;  // warp-uniform
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int r = lane + 32 * q;
         const float s = acc[i][q] + bq[q];
-        const int id = (int)(t0 + r);
-        const bool keep =
-            r < rows && s >= g_thr && better(s, id, thr_v, thr_i);
+        const bool keep = r < rows && s >= thr[i];
         const unsigned m = __ballot_sync(kFull, keep);
-        if (m == 0) continue;  // the common case once the list has filled
-        if (keep) {
-          const int off = count + __popc(m & ((1u << lane) - 1u));
-          pv[off] = s;
-          pi[off] = id;
-        }
-        count += __popc(m);
-        if (count >= 32) {
-          count = flush_pending(pv, pi, count, ubv, ubi, Kb, k, cs_v, cs_i,
-                                lane);
-          thr_v = ubv[k - 1];
-          thr_i = ubi[k - 1];
-          if (lane == 0 && thr_v > -CUDART_INF_F)
-            atomic_max_f32(thr_g + user0 + g, thr_v);
+        if (m == 0) continue;  // the common case
+        int base = 0;
+        if (lane == 0) base = atomicAdd(count + b, __popc(m));
+        base = __shfl_sync(kFull, base, 0) +
+               __popc(m & ((1u << lane) - 1u));
+        if (keep && base < C) {
+          cand_v[(long long)b * C + base] = s;
+          cand_i[(long long)b * C + base] = (int)(t0 + r);
         }
       }
-      pending[i] = count;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = warp * 4 + i;
-    if (user0 + g >= B || pending[i] == 0) continue;  // warp-uniform
-    flush_pending(pend_v + i * kPending, pend_i + i * kPending, pending[i],
-                  bv + g * Kb, bi + g * Kb, Kb, k, cs_v, cs_i, lane);
-  }
-
-  // this slice's list of each of the warp's users: [slice][B][width]
-  const long long plane = (long long)blockIdx.x * B * width;
-  for (int i = 0; i < 4; ++i) {
-    const int g = warp * 4 + i;
-    const int b = user0 + g;
-    if (b >= B) continue;
-    for (int e = lane; e < width; e += 32) {
-      dst_v[plane + (long long)b * width + e] = bv[g * Kb + e];
-      dst_i[plane + (long long)b * width + e] = bi[g * Kb + e];
     }
   }
 }
 
-// Second pass: per user (one warp), merge the n_slices sorted lists of Kb
-// entries into the final top k.
-__global__ void __launch_bounds__(32 * kMergeWarps)
-merge_slices_kernel(const float* __restrict__ pv, const int* __restrict__ pi,
-                    int n_slices, int B, int Kb, int k,
-                    float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ float4 smem4[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kMergeWarps + warp;
-  float* bv = reinterpret_cast<float*>(smem4) + warp * (2 * Kb + 64);
-  int* bi = reinterpret_cast<int*>(bv + Kb);
-  float* cs_v = reinterpret_cast<float*>(bi + Kb);
-  int* cs_i = reinterpret_cast<int*>(cs_v + 32);
-  if (b >= B) return;  // the whole warp; this kernel has no block barrier
-
-  const long long plane = (long long)B * Kb;
-  for (int e = lane; e < Kb; e += 32) {
-    bv[e] = pv[(long long)b * Kb + e];
-    bi[e] = pi[(long long)b * Kb + e];
-  }
-  __syncwarp();
-  for (int z = 1; z < n_slices; ++z) {
-    const float* lv = pv + z * plane + (long long)b * Kb;
-    const int* li = pi + z * plane + (long long)b * Kb;
-    for (int c0 = 0; c0 < Kb; c0 += 32) {  // Kb is a multiple of 32
-      const float cv = lv[c0 + lane];
-      const int ci = li[c0 + lane];
-      // the list is sorted: stop at the first chunk whose head loses
-      if (!better(__shfl_sync(kFull, cv, 0), __shfl_sync(kFull, ci, 0),
-                  bv[k - 1], bi[k - 1]))
-        break;
-      warp_merge(bv, bi, Kb, k, cv, ci, cs_v, cs_i, lane);
+// Sort (sv, si)[0, n) best first under better(), n a power of two: a
+// bitonic sort by the whole block, which ends with a barrier.
+__device__ void block_sort(float* sv, int* si, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const float vi = sv[i], vj = sv[j];
+        const int ii = si[i], ij = si[j];
+        // runs of `size` alternate best-first and worst-first
+        const bool swap = (i & size) == 0 ? better(vj, ij, vi, ii)
+                                          : better(vi, ii, vj, ij);
+        if (swap) {
+          sv[i] = vj;
+          si[i] = ij;
+          sv[j] = vi;
+          si[j] = ii;
+        }
+      }
+      __syncthreads();
     }
   }
-  for (int e = lane; e < k; e += 32) {
-    out_v[(long long)b * k + e] = bv[e];
-    out_i[(long long)b * k + e] = bi[e];
-  }
 }
 
-__global__ void fill_minus_inf_kernel(float* x, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) x[i] = -CUDART_INF_F;
-}
-
+// Stage 4, one block per user b: the first k of its candidates, sorted; or,
+// when more than C passed the filter, the first k of an exact rescan.
 template <typename T>
-cudaError_t launch(const void* u, const void* v, const float* bias, int B,
-                   int I, int D, int k, int Kb, int G, int n_slices,
-                   int tiles_per_slice, float* out_v, int* out_i,
-                   float* part_v, int* part_i, float* thr,
+__global__ void __launch_bounds__(kFinalThreads)
+final_kernel(const T* __restrict__ u, const T* __restrict__ v,
+             const float* __restrict__ bias, int I, int D, int k, int Kb,
+             int C, const float* __restrict__ cand_v,
+             const int* __restrict__ cand_i, const int* __restrict__ count,
+             float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ float4 smem4[];
+  float* sv = reinterpret_cast<float*>(smem4);   // [C]
+  int* si = reinterpret_cast<int*>(sv + C);      // [C]
+  float* us = reinterpret_cast<float*>(si + C);  // [D]
+  const int b = blockIdx.x;
+  const int n = count[b];
+  if (n <= C) {
+    int P = 1;  // n >= k unless the filter lost an item; P <= C either way
+    while (P < max(n, k)) P <<= 1;
+    for (int e = threadIdx.x; e < P; e += blockDim.x) {
+      const bool real = e < n;
+      sv[e] = real ? cand_v[(long long)b * C + e] : -CUDART_INF_F;
+      si[e] = real ? cand_i[(long long)b * C + e] : kNoId;
+    }
+    __syncthreads();
+    block_sort(sv, si, P);
+  } else {
+    // [0, Kb): the running best; [Kb, C): the next chunk of the catalog
+    for (int d = threadIdx.x; d < D; d += blockDim.x)
+      us[d] = to_f32(u[(long long)b * D + d]);
+    for (int e = threadIdx.x; e < Kb; e += blockDim.x) {
+      sv[e] = -CUDART_INF_F;
+      si[e] = kNoId;
+    }
+    __syncthreads();
+    const int chunk = C - Kb;
+    for (long long lo = 0; lo < I; lo += chunk) {
+      for (int j = threadIdx.x; j < chunk; j += blockDim.x) {
+        const long long t = lo + j;
+        const bool real = t < I;
+        sv[Kb + j] = real ? item_score<T, false>(us, v, bias, D, (int)t)
+                          : -CUDART_INF_F;
+        si[Kb + j] = real ? (int)t : kNoId;
+      }
+      __syncthreads();
+      block_sort(sv, si, C);
+    }
+  }
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    out_v[(long long)b * k + e] = sv[e];
+    out_i[(long long)b * k + e] = si[e];
+  }
+}
+
+// Launch stages first .. last (1 tau, 2 filter, 3 final) on one stream.
+template <typename T>
+cudaError_t launch(const void* u_, const void* v_, const float* bias, int B,
+                   int I, int D, int L, int k, int Kb, int C, int n_slices,
+                   int tiles_per_slice, float* bmax_v, const int* bmax_i,
+                   float* tau, int* count, float* cand_v, int* cand_i,
+                   float* out_v, int* out_i, int first, int last,
                    cudaStream_t stream) {
-  const int Dp = (D + 3) & ~3;
-  const int Sv = ((Dp >> 2) & 1) ? Dp : Dp + 4;
-  const size_t smem = sizeof(float) * ((size_t)G * Dp + (size_t)kTile * Sv +
-                                       2 * (size_t)G * Kb +
-                                       (size_t)(G / 4) * kScratch);
+  const T* u = static_cast<const T*>(u_);
+  const T* v = static_cast<const T*>(v_);
   // whole 16-byte chunk loads need V to start on a 16-byte boundary
-  auto kernel = reinterpret_cast<uintptr_t>(v) % 16 == 0
-                    ? fused_topk_kernel<T, true>
-                    : fused_topk_kernel<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const bool split = n_slices > 1;
-  fill_minus_inf_kernel<<<(B + 255) / 256, 256, 0, stream>>>(thr, B);
-  const dim3 grid(n_slices, (B + G - 1) / G);
-  kernel<<<grid, G * 8, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), bias, B, I, D, Dp,
-      Sv, Kb, k, tiles_per_slice, split ? Kb : k, split ? part_v : out_v,
-      split ? part_i : out_i, thr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !split) return err;
-  const size_t smem2 = sizeof(float) * kMergeWarps * (2 * (size_t)Kb + 64);
-  err = cudaFuncSetAttribute(merge_slices_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return err;
-  merge_slices_kernel<<<(B + kMergeWarps - 1) / kMergeWarps,
-                        32 * kMergeWarps, smem2, stream>>>(
-      part_v, part_i, n_slices, B, Kb, k, out_v, out_i);
-  return cudaGetLastError();
+  const bool aligned = reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  cudaError_t err = cudaSuccess;
+  if (first <= 1 && last >= 1) {
+    auto kernel = aligned && (D * sizeof(T)) % 16 == 0 ? tau_kernel<T, true>
+                                                       : tau_kernel<T, false>;
+    kernel<<<B, kTauThreads, sizeof(float) * D, stream>>>(
+        u, v, bias, I, D, L, k, bmax_v, bmax_i, tau, count);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (first <= 2 && last >= 2) {
+    const int Dp = (D + 3) & ~3;
+    const int Sv = ((Dp >> 2) & 1) ? Dp : Dp + 4;
+    const size_t smem =
+        sizeof(float) * ((size_t)kUsers * Dp + (size_t)kTile * Sv);
+    auto kernel = aligned ? filter_kernel<T, true> : filter_kernel<T, false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(n_slices, (B + kUsers - 1) / kUsers);
+    kernel<<<grid, kFilterThreads, smem, stream>>>(
+        u, v, bias, B, I, D, Dp, Sv, tiles_per_slice, C, tau, count, cand_v,
+        cand_i);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (first <= 3 && last >= 3) {
+    const size_t smem = 8 * (size_t)C + sizeof(float) * D;
+    err = cudaFuncSetAttribute(final_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    final_kernel<T><<<B, kFinalThreads, smem, stream>>>(
+        u, v, bias, I, D, k, Kb, C, cand_v, cand_i, count, out_v, out_i);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. u [B, D] and v [I, D] share one dtype
-// (is_bf16 ? bf16 : f32), row-major; bias [I] f32 or null (zeros). Outputs
-// [B, k] f32 scores and i32 ids, best first. Kb = k rounded up to 32 is the
-// running list length, G (a multiple of 4, at most 32) the users per block;
-// the catalog's ceil(I/128) tiles are cut into n_slices slices of
-// tiles_per_slice tiles. With n_slices > 1, part_v / part_i hold
-// [n_slices, B, Kb] partial lists (else they may be null). thr: [B] f32
-// scratch, the bound on each user's k-th score that the slices share.
-// Returns cudaGetLastError() after the launches (0 = success).
-extern "C" int openrec_fused_topk(const void* u, const void* v,
-                                  const float* bias, int is_bf16, int B,
-                                  int I, int D, int k, int Kb, int G,
-                                  int n_slices, int tiles_per_slice,
-                                  float* out_v, int* out_i, float* part_v,
-                                  int* part_i, float* thr, void* stream) {
+// C entry point, bound with ctypes: stages first .. last of K3 after the
+// K1 bound pass (1 tau, 2 filter, 3 final; the wrapper runs 1 .. 3 in one
+// call, a timing harness one at a time). u [B, D] and v [I, D] share one
+// dtype (is_bf16 ? bf16 : f32), row-major; bias [I] f32 or null (zeros).
+//   bmax_v / bmax_i: K1's [B, L] maxima and argmax ids (k <= L); tau
+//     overwrites bmax_v with the rescored values.
+//   tau [B] f32, count [B] i32, cand_v / cand_i [B, C] f32 / i32: scratch;
+//     count is the number of candidates that passed the filter, past C too.
+//   out_v / out_i [B, k] f32 / i32: the result, best first.
+// k <= Kb (k rounded up to 32), 4 * Kb <= C (a power of two); the
+// catalog's ceil(I/128) tiles are cut into n_slices slices of
+// tiles_per_slice tiles. Returns cudaGetLastError() after the launches
+// (0 = success).
+extern "C" int openrec_k3(const void* u, const void* v, const float* bias,
+                          int is_bf16, int B, int I, int D, int L, int k,
+                          int Kb, int C, int n_slices, int tiles_per_slice,
+                          float* bmax_v, const int* bmax_i, float* tau,
+                          int* count, float* cand_v, int* cand_i,
+                          float* out_v, int* out_i, int first, int last,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(u, v, bias, B, I, D, k, Kb, G, n_slices,
-                                 tiles_per_slice, out_v, out_i, part_v,
-                                 part_i, thr, s);
-  return launch<float>(u, v, bias, B, I, D, k, Kb, G, n_slices,
-                       tiles_per_slice, out_v, out_i, part_v, part_i, thr,
-                       s);
+    return launch<__nv_bfloat16>(u, v, bias, B, I, D, L, k, Kb, C, n_slices,
+                                 tiles_per_slice, bmax_v, bmax_i, tau, count,
+                                 cand_v, cand_i, out_v, out_i, first, last,
+                                 s);
+  return launch<float>(u, v, bias, B, I, D, L, k, Kb, C, n_slices,
+                       tiles_per_slice, bmax_v, bmax_i, tau, count, cand_v,
+                       cand_i, out_v, out_i, first, last, s);
 }

@@ -97,9 +97,10 @@ def _kernel_fn():
     return fn
 
 
-def _n_split(blocks: int, bucket: int, sm_count: int) -> int:
+def _n_split(B: int, L: int, bucket: int, sm_count: int) -> int:
     """Split the members of each bucket across blocks until the grid fills
     the card once (a second pass merges the splits)."""
+    blocks = (L // _LANES) * _HALVES * (-(-B // _BLOCK_USERS))
     n = 1
     while blocks * n < sm_count and n * 2 <= bucket:
         n *= 2
@@ -149,9 +150,7 @@ def _launch(user_vecs, item_table, item_bias, bucket: int, top2: bool):
     outs = [torch.empty((B, L), device=dev,
                         dtype=torch.float32 if k % 2 == 0 else torch.int32)
             for k in range(n_out)]
-    blocks = (L // _LANES) * _HALVES * (-(-B // _BLOCK_USERS))
-    n_split = _n_split(blocks, bucket,
-                       torch.cuda.get_device_properties(dev)
+    n_split = _n_split(B, L, bucket, torch.cuda.get_device_properties(dev)
                        .multi_processor_count)
     parts = [torch.empty((n_split, B, L), device=dev, dtype=o.dtype)
              for o in outs] if n_split > 1 else []
@@ -160,16 +159,27 @@ def _launch(user_vecs, item_table, item_bias, bucket: int, top2: bool):
         return [t.data_ptr() for t in tensors] + [None] * (4 - len(tensors))
 
     with torch.cuda.device(dev):
-        err = _kernel_fn()(
-            user_vecs.data_ptr(), item_table.data_ptr(),
-            None if item_bias is None else item_bias.data_ptr(),
-            int(user_vecs.dtype == torch.bfloat16), int(top2),
-            B, I, D, bucket, n_split, L, *ptrs(outs), *ptrs(parts),
-            torch.cuda.current_stream(dev).cuda_stream)
+        _launch_ptrs(user_vecs, item_table, item_bias, top2, bucket, n_split,
+                     L, ptrs(outs), ptrs(parts),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    return tuple(outs)
+
+
+def _launch_ptrs(user_vecs, item_table, item_bias, top2: bool, bucket: int,
+                 n_split: int, L: int, outs, parts, stream):
+    """Launch the kernel into outputs given as device pointers: `outs` and
+    `parts` are 4 each (v1, i1, v2, i2), None where unused; item_bias is
+    [I] or None. K3's bound pass calls this on its own workspace."""
+    B, D = user_vecs.shape
+    err = _kernel_fn()(
+        user_vecs.data_ptr(), item_table.data_ptr(),
+        None if item_bias is None else item_bias.data_ptr(),
+        int(user_vecs.dtype == torch.bfloat16), int(top2),
+        B, item_table.shape[0], D, bucket, n_split, L, *outs, *parts,
+        stream)
     if err != 0:
         raise RuntimeError(f"bucket_max kernel launch failed: CUDA error "
                            f"{err}")
-    return tuple(outs)
 
 
 def bucket_max_scores(user_vecs, item_table, item_bias, bucket: int = 128):

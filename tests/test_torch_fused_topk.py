@@ -1,7 +1,10 @@
 """Port parity: the fused score + top-k kernel K3's plain version (and the
 wrapper on CPU tensors) against the JAX package's `fused_score_topk` run
 in interpret mode, on the shapes and oracles of `tests/test_ops.py`, with
-planted exact ties.
+planted exact ties; and the CPU model of the CUDA path's four stages
+(`_threshold_topk_stages_plain`: bound pass, tau, filter, final sort or
+rescan) against the same references, which tests the exactness argument
+of the threshold.
 
 Tolerances: values rtol=atol=1e-5 (fp32 sums taken in another order). Ids
 are compared exactly: on these inputs no two distinct scores lie within
@@ -119,8 +122,10 @@ def test_wrapper_checks_and_limits():
         fused_score_topk(tu, tv[:, :3], tb, 5)
     with pytest.raises(ValueError):
         fused_geometry(4, 10_000, 64, 2049)
-    with pytest.raises(ValueError):                    # shared memory
+    with pytest.raises(ValueError):                    # K1's dim limit
         fused_geometry(4, 10_000, 1024, 1024)
+    with pytest.raises(ValueError):                    # shared memory
+        fused_geometry(4, 10_000, 384, 1024)
     # no bias is zeros
     got = fused_score_topk(tu, tv, None, 5)
     want = fused_score_topk(tu, tv, torch.zeros(50), 5)
@@ -131,12 +136,97 @@ def test_wrapper_checks_and_limits():
     (256, 450_166, 64, 100), (256, 16_980, 50, 100), (9, 300, 50, 300),
     (70, 20_000, 64, 1000), (4, 10_000, 256, 2048), (1, 129, 8, 1)])
 def test_launch_plan_covers_the_catalog(B, I, D, k):
-    Kb, G, n_slices, tps, smem = fused_geometry(B, I, D, k)
-    n_tiles = -(-I // 128)
-    assert Kb % 32 == 0 and k <= Kb < k + 32
-    assert G in (4, 8, 16, 32) and G * Kb * 8 <= 64 * 1024 or G == 4
-    assert smem <= ttopk._SMEM_LIMIT
-    assert (n_slices - 1) * tps < n_tiles <= n_slices * tps
-    if n_slices > 1:                     # each slice outlasts 8 full lists,
-        assert tps * 128 >= 8 * Kb       # and the grid is one wave
-        assert n_slices * -(-B // G) <= 2 * 132
+    for itemsize in (4, 2):
+        plan = fused_geometry(B, I, D, k, itemsize)
+        n_tiles = -(-I // 128)
+        assert plan.Kb % 32 == 0 and k <= plan.Kb < k + 32
+        # C: the smallest power of two >= 4 * Kb
+        assert plan.C & (plan.C - 1) == 0 and plan.C // 2 < 4 * plan.Kb \
+            <= plan.C
+        # the bound pass: L >= 8 * Kb, or bucket 1; and L >= k always
+        assert plan.L >= 8 * plan.Kb or plan.bucket == 1
+        assert plan.L == 128 * -(-n_tiles // plan.bucket) >= k
+        assert plan.bucket * 128 * D * itemsize <= 6 << 20 \
+            or plan.bucket == 1
+        for smem in (plan.smem_tau, plan.smem_filter, plan.smem_final):
+            assert smem <= ttopk._SMEM_LIMIT
+        assert (plan.n_slices - 1) * plan.tiles_per_slice < n_tiles \
+            <= plan.n_slices * plan.tiles_per_slice
+        # one wave at the filter's blocks per SM
+        assert plan.n_slices * -(-B // plan.users_per_block) \
+            <= ttopk._FILTER_BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("B,I,D,itemsize,k,bucket,L,C", [
+    (256, 16_980, 50, 4, 100, 16, 1_152, 512),      # CiteULike retrieval
+    (256, 450_166, 64, 2, 100, 256, 1_792, 512),    # Amazon, bf16
+    (4, 10_000, 64, 4, 2048, 1, 10_112, 8_192),
+])
+def test_plan_bound_pass_and_capacity(B, I, D, itemsize, k, bucket, L, C):
+    plan = fused_geometry(B, I, D, k, itemsize)
+    assert (plan.bucket, plan.L, plan.C) == (bucket, L, C)
+    with pytest.raises(ValueError):          # beyond the K1 pass's D
+        fused_geometry(B, I, 400, k, itemsize)
+
+
+def _stages(u, v, b, k, bucket=None):
+    vals, ids, count = ttopk._threshold_topk_stages_plain(
+        torch.from_numpy(u), torch.from_numpy(v),
+        None if b is None else torch.from_numpy(b), k, bucket=bucket)
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    return vals.numpy(), ids.numpy(), count.numpy()
+
+
+def _check_against_jax(u, v, b, k, got_v, got_i):
+    if b is None:
+        b = np.zeros(len(v), np.float32)
+    want_v, want_i = _jax(u, v, b, k)
+    np.testing.assert_allclose(got_v, want_v, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(got_i, want_i)
+    xv, _ = topk_xla(jnp.asarray(u), jnp.asarray(v), jnp.asarray(b), k)
+    np.testing.assert_allclose(got_v, np.asarray(xv), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("B,I,D,k,dup", [
+    (4, 1000, 16, 10, False),
+    (12, 300, 8, 50, False),
+    (5, 3000, 8, 100, False),      # bucket 2, L 1,536
+    (6, 900, 8, 128, True),
+    (3, 1100, 12, 129, True),
+])
+def test_threshold_stages_match_jax(B, I, D, k, dup):
+    u, v, b = _inputs(B * 11 + k, B, I, D, dup)
+    got_v, got_i, count = _stages(u, v, b, k)
+    _check_against_jax(u, v, b, k, got_v, got_i)
+    # every user keeps at least k candidates and, on these inputs, no more
+    # than C: the final sort, not the rescan, answers
+    assert (count >= min(k, I)).all()
+    assert (count <= fused_geometry(B, I, D, k).C).all()
+
+
+def test_threshold_stages_all_equal_scores_rescan():
+    """A zero table and bias: every score ties at tau, all I items pass,
+    count > C, and the rescan returns ids 0 .. k-1."""
+    u, v, _ = _inputs(2, 3, 700, 8)
+    v[:] = 0.0
+    k = 10
+    got_v, got_i, count = _stages(u, v, None, k)
+    assert (count == 700).all() and 700 > fused_geometry(3, 700, 8, k).C
+    np.testing.assert_array_equal(got_i, np.tile(np.arange(k), (3, 1)))
+    _check_against_jax(u, v, None, k, got_v, got_i)
+
+
+def test_threshold_stages_k_equals_I():
+    u, v, b = _inputs(4, 5, 130, 8)
+    got_v, got_i, count = _stages(u, v, b, 130)
+    assert (count == 130).all() and got_i.max() < 130
+    _check_against_jax(u, v, b, 130, got_v, got_i)
+
+
+def test_threshold_stages_fewer_real_buckets_than_k():
+    """Bucket 4 on 517 items: L = 256 buckets, only 133 of them hold an
+    item, so k = 140 leaves tau = -inf and every item passes."""
+    u, v, b = _inputs(6, 4, 517, 8)
+    got_v, got_i, count = _stages(u, v, b, 140, bucket=4)
+    assert (count == 517).all()
+    _check_against_jax(u, v, b, 140, got_v, got_i)
