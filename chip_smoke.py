@@ -7,9 +7,13 @@ Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels from
      openrec_tpu_torch/csrc with nvcc, one process per source, all at once
      (set-up time, printed).
-  2. hold each kernel against its plain PyTorch version on the card: f32
-     and bf16, D in {50, 64}, a ragged catalog tail, bucket = 1, a split
-     bucket range, and the serving shapes (K1/K2); for K3 k in {1, 100,
+  2. hold each kernel against its plain PyTorch version on the card: for
+     K1/K2 (`K1K2_CASES`; bf16 runs the tensor-core route, f32 the
+     CUDA-core route) f32 and bf16, D in {50, 60, 64}, a ragged catalog
+     tail, bucket = 1, a split bucket range, B = 37, bf16 tables whose
+     rows start 8- or 2-byte aligned (views into their storage), twin
+     bucket members (exact ties: slot 1 keeps the earlier, K2's slot 2 the
+     twin), and the serving shapes; for K3 k in {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
      start on a 16-byte boundary, all-equal scores (K3's rescan branch),
@@ -31,7 +35,8 @@ Phases, in order; any failure raises and exits non-zero:
   4. time each kernel with CUDA events (median of 30 after warm-up) beside
      its plain version, a library yardstick (torch.matmul + torch.topk,
      which the port never calls) and its bound (bytes at 3.35 TB/s,
-     operations at the peak for the input type): K1/K2 at the Amazon
+     operations at the peak for the input type), with its device time by
+     kernel under torch.profiler: K1/K2 at the Amazon
      serving shape, K3 at the CiteULike retrieval shape of phase 5 and at
      the Amazon shape, each of K3's four launches (K1 bound pass, tau,
      filter, final) on its own too.
@@ -39,7 +44,8 @@ Phases, in order; any failure raises and exits non-zero:
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
      `citeulike_data`). Trainer.train, with val eval and a checkpoint every
-     200 steps: host-fed (Dataset.pairwise, 2 threads, 100 steps a call),
+     200 steps: host-fed (Dataset.pairwise, 2 threads, 100 steps a call,
+     which must run the C++ sampler feeder, the JAX package's default),
      then device-sampled (DevicePairwiseSampler, 200 steps a call).
      Checks: the mean loss of each 200 steps falls in both feeds and val
      AUC rises above its step-0 value; on one stacked
@@ -170,37 +176,97 @@ def bucket_of(bt, v, bucket):
                               bucket)[0]
 
 
+K1K2_CASES = [
+    # name, B, I, D, dtype, bucket, layout: "" | "row" (the table is a view
+    # one row into its storage: D = 60 rows of 120 bytes start 8-byte
+    # aligned) | "element" (a view one element in: 2-byte aligned rows) |
+    # "twins" (member 2m+1 of every bucket repeats member 2m, bias and all:
+    # exact ties inside a bucket, where slot 1 must keep the earlier member)
+    ("f32 D=50 ragged", 37, 5_000, 50, "float32", 4, ""),
+    ("bf16 D=64", 70, 20_000, 64, "bfloat16", 16, ""),
+    ("bf16 bucket=1", 9, 1_000, 64, "bfloat16", 1, ""),
+    ("f32 split", 64, 30_000, 64, "float32", 64, ""),
+    ("bf16 D=50 (Dp 64, 100-byte rows)", 64, 20_001, 50, "bfloat16", 16, ""),
+    ("bf16 D=60 view one row in", 50, 9_999, 60, "bfloat16", 8, "row"),
+    ("bf16 D=64 view one element in", 20, 5_000, 64, "bfloat16", 4,
+     "element"),
+    ("bf16 D=64 twin members", 40, 30_000, 64, "bfloat16", 16, "twins"),
+    ("bf16 B=37", 37, 10_000, 64, "bfloat16", 8, ""),
+    ("amazon K1 shape", BATCH, AMAZON["items"], 64, "bfloat16", 64, ""),
+    ("amazon K2 shape", BATCH, AMAZON["items"], 64, "bfloat16", 256, ""),
+    ("citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", 16, ""),
+]
+
+
+def k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket, layout):
+    """(u, v, b) on the card for one K1/K2 case, laid out as it says."""
+    dt = getattr(torch, dtype)
+    u = torch.randn(B, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(I, D, generator=gen, device=dev)
+    b = torch.randn(I, generator=gen, device=dev)
+    if layout == "twins":
+        blk = 128 * bt.bucket_geometry(I, D, 2, bucket)[0]
+        t = torch.arange(I, device=dev)
+        odd = ((t % blk) // 128) % 2 == 1
+        v[odd] = v[t[odd] - 128]
+        b[odd] = b[t[odd] - 128]
+    v = v.to(dt)
+    if layout == "row":
+        v = torch.cat([v[:1], v])[1:]
+    elif layout == "element":
+        flat = torch.empty(I * D + 1, device=dev, dtype=dt)
+        flat[1:] = v.reshape(-1)
+        v = flat[1:].view(I, D)
+    if layout and layout != "twins" and v.data_ptr() % 16 == 0:
+        fail(f"{layout} view is 16-byte aligned")
+    return u, v, b
+
+
 def phase_compare(torch, bt, gen, dev):
-    cases = [
-        # name, B, I, D, dtype, bucket
-        ("f32 D=50 ragged", 37, 5_000, 50, torch.float32, 4),
-        ("bf16 D=64", 70, 20_000, 64, torch.bfloat16, 16),
-        ("bf16 bucket=1", 9, 1_000, 64, torch.bfloat16, 1),
-        ("f32 split", 64, 30_000, 64, torch.float32, 64),
-        ("amazon K1 shape", BATCH, AMAZON["items"], 64, torch.bfloat16, 64),
-        ("amazon K2 shape", BATCH, AMAZON["items"], 64, torch.bfloat16, 256),
-        ("citeulike shape", BATCH, CITEULIKE["items"], 50, torch.float32,
-         16),
-    ]
     errs = {"K1": 0.0, "K2": 0.0}
     report = []
-    for name, B, I, D, dt, bucket in cases:
-        u = torch.randn(B, D, generator=gen, device=dev).to(dt)
-        v = torch.randn(I, D, generator=gen, device=dev).to(dt)
-        b = torch.randn(I, generator=gen, device=dev)
+    for name, B, I, D, dtype, bucket, layout in K1K2_CASES:
+        u, v, b = k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket,
+                              layout)
         for kname, top2 in (("K1", False), ("K2", True)):
             err, bad, ties = compare_kernel(torch, bt, u, v, b, bucket, top2)
             errs[kname] = max(errs[kname], err)
-            line = dict(case=name, kernel=kname, B=B, I=I, D=D,
-                        dtype=str(dt).split(".")[-1], bucket=bucket,
+            line = dict(case=name, kernel=kname, B=B, I=I, D=D, dtype=dtype,
+                        bucket=bucket,
+                        route="mma-bf16" if dtype == "bfloat16"
+                        else "fma-f32",
+                        row_address_mod_16=v.data_ptr() % 16,
                         max_abs_err=err, id_mismatch_not_tie=bad,
                         id_mismatch_tie=ties)
+            if layout == "twins":
+                line["twins_earliest"] = check_twins(torch, bt, u, v, b,
+                                                     bucket, top2, name)
             print("compare", json.dumps(line), flush=True)
             report.append(line)
             if bad:
                 fail(f"{kname} {name}: {bad} id mismatches that are not "
                      "near-ties")
     return errs, report
+
+
+def check_twins(torch, bt, u, v, b, bucket, top2, name):
+    """With member 2m+1 a copy of member 2m, slot 1 must name the even
+    member of its pair (the earlier one, strict `>`), and K2's slot 2 its
+    twin, at the same value."""
+    out = (bt.bucket_max2_scores if top2 else bt.bucket_max_scores)(
+        u, v, b, bucket=bucket)
+    torch.cuda.synchronize()
+    blk = 128 * bucket_of(bt, v, bucket)
+    v1, i1 = out[0], out[1].long()
+    real = v1 > -1e29
+    if (((i1 % blk) // 128 % 2 == 1) & real).any():
+        fail(f"{name}: slot 1 kept the later twin of a tie")
+    if top2:
+        v2, i2 = out[2], out[3].long()
+        has = real & (i1 + 128 < v.shape[0])
+        if not ((i2 == i1 + 128) & (v2 == v1))[has].all():
+            fail(f"{name}: slot 2 is not the twin of slot 1")
+    return True
 
 
 K3_CASES = [
@@ -593,14 +659,18 @@ def phase_train(torch, port, seed, dev):
                 fail(f"{what} loss did not fall: {losses}")
             return log
 
-        log = train(train_ds.pairwise(batch_size=cfg["batch"],
-                                      num_parallel_calls=2),
-                    cfg["host_steps"], cfg["host_k"], "host-fed")
+        host_feed = train_ds.pairwise(batch_size=cfg["batch"],
+                                      num_parallel_calls=2)
+        # the host feed is the JAX package's default: the C++ feeder
+        if not host_feed._sampler.use_native:
+            fail("the host-fed feed did not take the native sampler")
+        log = train(host_feed, cfg["host_steps"], cfg["host_k"], "host-fed")
         auc = log[-1]["eval"]["val"]["AUC"]
         if not auc > auc0:
             fail(f"val AUC did not rise: {auc0} at step 0, {auc} at "
                  f"step {trainer.global_step}")
-        out["host_fed"] = {"val_auc_step0": auc0, "log": log}
+        out["host_fed"] = {"val_auc_step0": auc0, "use_native": True,
+                           "log": log}
 
         # the checkpoint restored into a fresh model scores alike
         ckpt = ckpt_lib.latest_checkpoint(ckpt_dir)
@@ -695,6 +765,8 @@ def phase_train(torch, port, seed, dev):
 
     # throughput of both feeds, then the device's idle share
     feed = train_ds.pairwise(batch_size=cfg["batch"], num_parallel_calls=2)
+    if not feed._sampler.use_native:
+        fail("the timed host feed did not take the native sampler")
     host_it = iter(feed)
 
     def host_call():
@@ -716,7 +788,9 @@ def phase_train(torch, port, seed, dev):
                        "examples_per_s": k * cfg["batch"] / ms * 1e3}
         speed[name]["profile"] = profile_device(
             torch, fn, cfg["profiled_calls"], ms)
-        print(f"train {name}: {speed[name]['steps_per_s']:.1f} steps/s, "
+        print(f"train {name}"
+              f"{' (native sampler)' if name == 'host_fed' else ''}: "
+              f"{speed[name]['steps_per_s']:.1f} steps/s, "
               f"{speed[name]['examples_per_s']:.0f} examples/s, device "
               f"idle {speed[name]['profile']['idle_share']:.3f}", flush=True)
     feed.stop()
@@ -769,6 +843,13 @@ def phase_time(torch, bt, gen, dev, errs, launches):
              "_bucket_max2_kernel")):
         bucket, _, L = bt.bucket_geometry(I, D, 2, bucket)
         ms = time_ms(torch, lambda: func(u, v, b, bucket=bucket))
+        # device time by kernel: the kernel itself and, with a member split,
+        # its merge pass
+        profile = profile_device(torch, lambda: func(u, v, b, bucket=bucket),
+                                 10, ms)
+        device_ms = sum(t for name, t in
+                        profile["top_device_ms_per_call"].items()
+                        if "bucket_max" in name or "merge_splits" in name)
         plain_ms = time_ms(torch, lambda: bt.bucket_max_plain(
             u, v, b, bucket, top2=top2), runs=20)
         clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
@@ -779,22 +860,31 @@ def phase_time(torch, bt, gen, dev, errs, launches):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
         entries.append({
-            "name": f"{kname} bucket_max_kernel<top{2 if top2 else 1}>",
+            "name": f"{kname} bucket_max_mma<top{2 if top2 else 1}>",
             "route": "cuda",
             "source": "openrec_tpu_torch/csrc/bucket_max.cu",
             "replaces": f"openrec_tpu/ops/bucketed_topk.py:{line}",
             "replaces_function": fn_name,
+            "variant": "mma-bf16",
             "launches": launches[kname],
             "max_abs_err": errs[kname],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
             # SM clock, power draw and temperature right after the timing
             "card_after_timing": clocks,
+            "profile": profile,
             "shape": {"B": B, "I": I, "D": D, "dtype": "bfloat16",
-                      "bucket": bucket, "L": L, "k": K},
+                      "bucket": bucket, "L": L, "k": K,
+                      **bt.mma_plan(B, I, D, bucket, top2, torch.cuda
+                                    .get_device_properties(dev)
+                                    .multi_processor_count)._asdict()},
         })
+        print(f"{kname} amazon ({entries[-1]['variant']}): {ms:.4f} ms by "
+              f"events, {device_ms:.4f} ms device (library "
+              f"{library_ms:.4f}, plain {plain_ms:.3f}, bound "
+              f"{entries[-1]['bound_ms']:.4f})", flush=True)
     return entries
 
 
@@ -953,6 +1043,7 @@ def main(argv=None):
         "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
         "launches": s["launches"]} for name, s in serve.items()}}))
     print(json.dumps({"training": {
+        "use_native": train["host_fed"]["use_native"],
         "val_auc_step0": train["host_fed"]["val_auc_step0"],
         "val_auc": train["host_fed"]["log"][-1]["eval"]["val"]["AUC"],
         "val_auc_device_sampled":

@@ -9,10 +9,11 @@ kernels for Hopper (`csrc/`), built with nvcc at first use; on a CPU
 tensor each kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far, the BPR-CiteULike main path end to end:
-  - data: InteractionStore, PairwiseSampler (numpy path; the C++ feeder
-    is not ported), EvaluationSampler, Dataset, Prefetcher, pinned
-    non_blocking `to_device`, the CiteULike loaders, and the on-device
-    DevicePairwiseSampler (bitmap / searchsorted membership);
+  - data: InteractionStore, PairwiseSampler (numpy path and the C++
+    feeder, `native/`, built with g++ at first use), EvaluationSampler,
+    Dataset, Prefetcher, pinned non_blocking `to_device`, the CiteULike
+    loaders, and the on-device DevicePairwiseSampler (bitmap /
+    searchsorted membership);
   - training: BPR, lazy_adam / keras_adam / lazy_adagrad, Trainer (the
     K-step loops, on-device sampling, train / evaluate, checkpoints in
     the JAX format, warm start, torch.profiler);

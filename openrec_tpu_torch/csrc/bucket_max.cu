@@ -13,53 +13,93 @@
 // With bucket == 1, K2's second slot stays -inf and names the first member.
 //
 // What bounds it on an H100 at the serving shape (B = 256 users, the
-// 450,166 x 64 bf16 catalog, bucket 64 -> L = 7,040): ~57.6 MB of table
-// plus ~14.4 MB of K1 outputs, 73.8 MB in all, is ~22 us at 3.35 TB/s;
-// the 14.8 GFLOP of dot products are ~15 us on the bf16 tensor cores. So
-// the work is memory-bound — IF the products run on the tensor cores.
-// This first design runs them on the CUDA cores in fp32 (67 TFLOP/s peak,
-// ~0.22 ms for 14.8 GFLOP), so it is bound by FMA issue, not by bytes.
-// wgmma/TMA pipelines are the next step; this one is simple and right.
+// 450,166 x 64 bf16 catalog): bytes. K1 (bucket 64, L = 7,040) reads
+// 57.6 MB of table and writes 14.4 MB of outputs, 73.8 MB in all, ~22 us
+// at 3.35 TB/s; K2 (bucket 256, L = 1,792) moves 66.7 MB, ~20 us. The
+// 14.75 GFLOP of dot products take ~15 us at the bf16 tensor cores' dense
+// rate, but ~0.22 ms on the CUDA cores in fp32 (67 TFLOP/s).
 //
-// Design. One block = 64 users x 64 of the 128 lanes of one grid block j
-// (two blocks per j), 256 threads, each owning 4 users x 4 lanes and
-// their running (max, member) state in registers. The user tile is staged
-// once in shared memory as fp32 [D][64]; for each member a, the 64 item
-// rows j*128*bucket + a*128 + [0, 64) (one contiguous run of 64*D
-// elements, read coalesced) are staged as fp32 [D][64], then each thread
-// does a 4x4 outer product per d from two float4 shared-memory loads.
-// When the grid (grid blocks x lane halves x user tiles) is too small to
-// fill the card, the member range [0, bucket) is split across n_split
-// blocks that write partial states, and a second pass merges them in
-// member order with the same rule (earlier split = lower indices, so the
-// earliest-member tie rule survives).
+// Two routes, one function:
+//
+// bf16 (`bucket_max_mma`): the products run on the tensor cores,
+//   mma.sync m16n8k16 bf16 x bf16 -> f32 (bf16 products are exact in fp32;
+//   only the summation order differs from a plain fp32 product). A block
+//   owns 64 users x 64 lanes of one grid block j: 8 warps, each 16 users x
+//   32 lanes (4 m16n8 tiles). The user tile is staged once in shared
+//   memory; the member tiles (64 contiguous item rows each) stream through
+//   a ring of S stages filled by cp.async (16-byte copies where rows and
+//   table allow, else 8, 4, or 2-byte loads into the same layout), with
+//   the bias slice beside each. D is zero-padded to Dp = ceil(D/16)*16 and
+//   each shared row is padded by 16 bytes, so ldmatrix reads are free of
+//   bank conflicts. In m16n8k16 a thread owns fixed (user, lane) pairs of
+//   the accumulator (rows g, g+8; columns 2*(lane%4), +1), the same ones for
+//   every member tile, so the running (max, member) state stays in
+//   registers beside the fragment and the epilogue is the compare below,
+//   fragment by fragment in member order. The blocks that share a V tile
+//   (all user tiles of one j, lane half and member split) are adjacent in
+//   launch order, so each V tile crosses HBM once and the other user tiles
+//   find it in L2.
+//
+// f32 (`bucket_max_f32_kernel`): the CUDA cores, fp32 FMAs. `pallas` must
+//   return exact fp32 scores (the tensor cores' TF32 keeps ~3 digits), so
+//   this route stays on them: a block owns the same 64 users x 64 lanes,
+//   256 threads of 4 users x 4 lanes each; the user tile and each member
+//   tile are staged as fp32 [D][64] and each thread does a 4x4 outer
+//   product per d from two float4 shared-memory loads.
+//
+// Both routes split the member range [0, bucket) across n_split blocks
+// when the grid is too small to fill the card; the blocks write partial
+// states, and a second pass merges them in member order with the same rule
+// (earlier split = lower indices, so the earliest-member tie rule
+// survives).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kLanes = 128;        // bucket stride of the strided layout
-constexpr int kUsers = 64;         // users per block
+constexpr int kUsers = 64;         // users per block (both routes)
 constexpr int kBlockLanes = 64;    // lanes per block (half a grid block)
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 users x 4 lanes each
-constexpr int kStride = 64 + 4;    // smem row stride (floats): keeps the
-                                   // float4 loads 16-byte aligned
+constexpr int kThreads = 256;
+constexpr int kStride = 64 + 4;    // f32 route: smem row stride (floats),
+                                   // keeps the float4 loads 16-byte aligned
 constexpr float kPadScore = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Running top-1 / top-2 state of one (user, lane): the reference's rule.
+template <bool TOP2>
+__device__ __forceinline__ void update(float s, int a, float& v1, int& c1,
+                                       float& v2, int& c2) {
+  if (TOP2) {
+    float lose_v = s;
+    int lose_c = a;
+    if (s > v1) {
+      lose_v = v1;
+      lose_c = c1;
+      v1 = s;
+      c1 = a;
+    }
+    if (lose_v > v2) {
+      v2 = lose_v;
+      c2 = lose_c;
+    }
+  } else if (s > v1) {
+    v1 = s;
+    c1 = a;
+  }
 }
 
-template <typename T, bool TOP2>
+// ------------------------------------------------------------- f32 route
+
+template <bool TOP2>
 __global__ void __launch_bounds__(kThreads)
-bucket_max_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                  const float* __restrict__ bias, int B, int I, int D,
-                  int bucket, int n_split, int L,
-                  float* __restrict__ out_v1, int* __restrict__ out_i1,
-                  float* __restrict__ out_v2, int* __restrict__ out_i2) {
+bucket_max_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                      const float* __restrict__ bias, int B, int I, int D,
+                      int bucket, int n_split, int L,
+                      float* __restrict__ out_v1, int* __restrict__ out_i1,
+                      float* __restrict__ out_v2, int* __restrict__ out_i2) {
   extern __shared__ float4 smem4[];
   float* u_s = reinterpret_cast<float*>(smem4);  // [D][kStride]
   float* v_s = u_s + D * kStride;                // [D][kStride]
@@ -81,7 +121,7 @@ bucket_max_kernel(const T* __restrict__ u, const T* __restrict__ v,
   for (int e = tid; e < kUsers * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int b = user0 + r;
-    u_s[d * kStride + r] = b < B ? to_f32(u[(long long)b * D + d]) : 0.f;
+    u_s[d * kStride + r] = b < B ? u[(long long)b * D + d] : 0.f;
   }
 
   float v1[4][4], v2[4][4];
@@ -106,9 +146,9 @@ bucket_max_kernel(const T* __restrict__ u, const T* __restrict__ v,
     __syncthreads();  // the previous tile has been consumed
     {
       int r = r_first, d = d_first;
-      const T* src = v + t0 * D;
+      const float* src = v + t0 * D;
       for (int e = tid; e < kBlockLanes * D; e += kThreads) {
-        v_s[d * kStride + r] = (t0 + r < I) ? to_f32(src[e]) : 0.f;
+        v_s[d * kStride + r] = (t0 + r < I) ? src[e] : 0.f;
         r += dr;
         d += dd;
         if (d >= D) {
@@ -144,26 +184,9 @@ bucket_max_kernel(const T* __restrict__ u, const T* __restrict__ v,
       const bool real = t < I;
       const float bq = (real && bias != nullptr) ? bias[t] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float s = real ? acc[i][q] + bq : kPadScore;
-        if (TOP2) {
-          float lose_v = s;
-          int lose_c = a;
-          if (s > v1[i][q]) {
-            lose_v = v1[i][q];
-            lose_c = c1[i][q];
-            v1[i][q] = s;
-            c1[i][q] = a;
-          }
-          if (lose_v > v2[i][q]) {
-            v2[i][q] = lose_v;
-            c2[i][q] = lose_c;
-          }
-        } else if (s > v1[i][q]) {
-          v1[i][q] = s;
-          c1[i][q] = a;
-        }
-      }
+      for (int i = 0; i < 4; ++i)
+        update<TOP2>(real ? acc[i][q] + bq : kPadScore, a, v1[i][q],
+                     c1[i][q], v2[i][q], c2[i][q]);
     }
   }
 
@@ -186,6 +209,273 @@ bucket_max_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
   }
 }
+
+// ------------------------------------------------------------ bf16 route
+
+constexpr int kNT = 4;             // m16n8 tiles per warp: 32 lanes
+constexpr int kMaxStages = 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `Bytes` (16, 8 or 4) bytes; src_bytes 0 zero-fills the
+// destination and reads nothing.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  if (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else if (Bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n (0 .. kMaxStages - 2) groups of this thread are in
+// flight; wait_group takes an immediate.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Shared memory: the user tile [kUsers][rs] bf16, then `stages` ring
+// slots of [kBlockLanes][rs] bf16 rows, then `stages` bias slices of
+// kBlockLanes floats. rs = 2*Dp + 16 bytes: an odd number of 16-byte
+// chunks, so the 8 row addresses of an ldmatrix fall in 8 distinct bank
+// groups.
+//
+// Grid: blockIdx.x = ((j * n_split + z) * 2 + h) * n_ut + ut, user tile ut
+// fastest, so the n_ut blocks that read the same 64 V rows per member run
+// side by side.
+template <bool TOP2>
+__global__ void __launch_bounds__(kThreads, 2)
+bucket_max_mma(const __nv_bfloat16* __restrict__ u,
+               const __nv_bfloat16* __restrict__ v,
+               const float* __restrict__ bias, int B, int I, int D, int Dp,
+               int vec, int stages, int bucket, int n_split, int L,
+               float* __restrict__ out_v1, int* __restrict__ out_i1,
+               float* __restrict__ out_v2, int* __restrict__ out_i2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rs = 2 * Dp + 16;                        // row stride, bytes
+  const int tile_bytes = kBlockLanes * rs;
+  unsigned char* u_s = smem;
+  unsigned char* ring = smem + kUsers * rs;
+  float* bias_s = reinterpret_cast<float*>(ring + stages * tile_bytes);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wu = warp & 3;      // users 16*wu .. +15 of the block
+  const int wl = warp >> 2;     // lanes 32*wl .. +31 of the block
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const int n_ut = (B + kUsers - 1) / kUsers;
+  const int ut = blockIdx.x % n_ut;
+  const int rest = blockIdx.x / n_ut;
+  const int h = rest & 1;
+  const int z = (rest >> 1) % n_split;
+  const int j = (rest >> 1) / n_split;
+  const int user0 = ut * kUsers;
+  const int lane_base = h * kBlockLanes;
+  const long long item_block = (long long)bucket * kLanes;
+  const int a_per = (bucket + n_split - 1) / n_split;
+  const int a_begin = z * a_per;
+  const int a_end = min(bucket, a_begin + a_per);
+  const int n_tiles = max(0, a_end - a_begin);
+  const long long t_first =
+      j * item_block + (long long)a_begin * kLanes + lane_base;
+
+  // User tile [user][Dp] bf16, zeros past B and past D.
+  {
+    unsigned short* us = reinterpret_cast<unsigned short*>(u_s);
+    const unsigned short* ug = reinterpret_cast<const unsigned short*>(u);
+    for (int e = tid; e < kUsers * Dp; e += kThreads) {
+      const int r = e / Dp, d = e - r * Dp;
+      const int b = user0 + r;
+      us[r * (rs / 2) + d] = (b < B && d < D) ? ug[(long long)b * D + d] : 0;
+    }
+  }
+  // The ring's pad columns [D, Dp) stay zero: the copies write [0, D).
+  if (Dp > D) {
+    const int pad = Dp - D;
+    for (int e = tid; e < stages * kBlockLanes * pad; e += kThreads) {
+      const int row = e / pad, d = D + (e - row * pad);
+      reinterpret_cast<unsigned short*>(ring + row * rs)[d] = 0;
+    }
+  }
+
+  // Member tile copy: thread tid moves chunks c = tid, tid + 256, ... of
+  // the tile's kBlockLanes * cpr chunks of `vec` bytes (row r = c / cpr,
+  // chunk k = c % cpr), walked without dividing in the loop.
+  const int row_bytes = 2 * D;
+  const int cpr = row_bytes / vec;
+  const int n_chunks = kBlockLanes * cpr;
+  const int dr = kThreads / cpr, dk = kThreads % cpr;
+  const int r_first = tid / cpr, k_first = tid - r_first * cpr;
+  const char* vb = reinterpret_cast<const char*>(v);
+
+  auto load_tile = [&](int i) {           // member a_begin + i -> slot i % S
+    const long long t0 = t_first + (long long)i * kLanes;
+    unsigned char* dst_tile = ring + (i % stages) * tile_bytes;
+    const uint32_t dst0 = smem_addr(dst_tile);
+    int r = r_first, k = k_first;
+    for (int c = tid; c < n_chunks; c += kThreads) {
+      const bool ok = t0 + r < I;
+      const char* src = ok ? vb + (t0 + r) * row_bytes + k * vec : vb;
+      const uint32_t dst = dst0 + r * rs + k * vec;
+      if (vec == 16) {
+        cp_async<16>(dst, src, ok ? 16 : 0);
+      } else if (vec == 8) {
+        cp_async<8>(dst, src, ok ? 8 : 0);
+      } else if (vec == 4) {
+        cp_async<4>(dst, src, ok ? 4 : 0);
+      } else {        // rows or table only 2-byte aligned: plain loads
+        *reinterpret_cast<unsigned short*>(dst_tile + r * rs + k * 2) =
+            ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+      }
+      r += dr;
+      k += dk;
+      if (k >= cpr) {
+        k -= cpr;
+        ++r;
+      }
+    }
+    if (tid < kBlockLanes) {
+      const bool ok = bias != nullptr && t0 + tid < I;
+      cp_async<4>(smem_addr(bias_s + (i % stages) * kBlockLanes + tid),
+                  ok ? static_cast<const void*>(bias + t0 + tid) : vb,
+                  ok ? 4 : 0);
+    }
+  };
+
+  float v1[kNT][4], v2[kNT][4];
+  int c1[kNT][4], c2[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v1[n][q] = -CUDART_INF_F;
+      v2[n][q] = -CUDART_INF_F;
+      c1[n][q] = a_begin;
+      c2[n][q] = a_begin;
+    }
+
+  // ldmatrix row addresses. A (users x d, row-major): lane l gives row
+  // l % 16 at column (l / 16) * 8, so matrices 0..3 are a0..a3 of
+  // m16n8k16. B (lanes x d, the "col" operand as stored): lane l gives
+  // lane row (l / 16) * 8 + l % 8 at column ((l / 8) & 1) * 8, so one x4
+  // load is (b0, b1) of two neighbouring n8 tiles.
+  const uint32_t a_addr =
+      smem_addr(u_s) + (16 * wu + (lane & 15)) * rs + (lane >> 4) * 16;
+  const uint32_t b_off =
+      (32 * wl + (lane >> 4) * 8 + (lane & 7)) * rs + ((lane >> 3) & 1) * 16;
+  const uint32_t ring_addr = smem_addr(ring);
+  const int k_steps = Dp / 16;
+
+  // Prologue: stages - 1 tiles in flight (a group per slot, empty or not,
+  // so that the group count of every iteration is the same).
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait(stages - 2);   // tile i has landed (this thread's part)
+    __syncthreads();             // ... everyone's; slot (i - 1) % S is free
+    if (i + stages - 1 < n_tiles) load_tile(i + stages - 1);
+    cp_async_commit();
+
+    const int slot = i % stages;
+    const uint32_t b_addr = ring_addr + slot * tile_bytes + b_off;
+    float acc[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
+    for (int ks = 0; ks < k_steps; ++ks) {
+      uint32_t a0, a1, a2, a3;
+      ldmatrix_x4(a_addr + ks * 32, a0, a1, a2, a3);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4(b_addr + np * 16 * rs + ks * 32, b0, b1, b2, b3);
+        mma_bf16(acc[2 * np], a0, a1, a2, a3, b0, b1);
+        mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+
+    // Epilogue: accumulator (n, q) is user 16*wu + g + 8*(q >> 1), lane
+    // 32*wl + 8*n + 2*t4 + (q & 1) of the block.
+    const int a = a_begin + i;
+    const long long t0 = t_first + (long long)i * kLanes;
+    const float* bs = bias_s + slot * kBlockLanes;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int col = 32 * wl + 8 * n + 2 * t4;
+      const float2 bb = *reinterpret_cast<const float2*>(bs + col);
+      const bool real0 = t0 + col < I, real1 = t0 + col + 1 < I;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool real = (q & 1) ? real1 : real0;
+        const float s = real ? acc[n][q] + ((q & 1) ? bb.y : bb.x) : kPadScore;
+        update<TOP2>(s, a, v1[n][q], c1[n][q], v2[n][q], c2[n][q]);
+      }
+    }
+  }
+  cp_async_wait(0);   // no copy may outlive the block (empty groups only)
+
+  const long long plane = (long long)z * B * L;
+  const long long base0 = j * item_block + lane_base;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = user0 + 16 * wu + g + 8 * (q >> 1);
+      if (b >= B) continue;
+      const int col = 32 * wl + 8 * n + 2 * t4 + (q & 1);
+      const long long o =
+          plane + (long long)b * L + (long long)j * kLanes + lane_base + col;
+      const long long base = base0 + col;
+      out_v1[o] = v1[n][q];
+      out_i1[o] = (int)(base + (long long)c1[n][q] * kLanes);
+      if (TOP2) {
+        out_v2[o] = v2[n][q];
+        out_i2[o] = (int)(base + (long long)c2[n][q] * kLanes);
+      }
+    }
+}
+
+// ------------------------------------------------------------ merge pass
 
 // Second pass: merge n_split partial [B, L] states in split order with the
 // reference's pair merge rule (bucketed_topk.py:170-183).
@@ -241,23 +531,51 @@ __global__ void merge_splits_kernel(const float* __restrict__ pv1,
   }
 }
 
-template <typename T, bool TOP2>
-cudaError_t launch(const void* u, const void* v, const float* bias, int B,
-                   int I, int D, int bucket, int n_split, int L, float* v1,
+// Widest copy (16, 8, 4 or 2 bytes) that every row start of v allows.
+int copy_width(const void* v, int D) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(v) | (uintptr_t)(2 * D);
+  for (int w = 16; w > 2; w >>= 1)
+    if (bits % w == 0) return w;
+  return 2;
+}
+
+template <bool TOP2>
+cudaError_t launch(const void* u, const void* v, const float* bias,
+                   int is_bf16, int B, int I, int D, int Dp, int stages,
+                   int smem_mma, int bucket, int n_split, int L, float* v1,
                    int* i1, float* v2, int* i2, float* pv1, int* pi1,
                    float* pv2, int* pi2, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)D * kStride * sizeof(float);
-  auto kernel = bucket_max_kernel<T, TOP2>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int n_j = L / kLanes;
-  const dim3 grid(n_j * 2 * n_split, (B + kUsers - 1) / kUsers);
+  const int n_ut = (B + kUsers - 1) / kUsers;
   const bool split = n_split > 1;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), bias, B, I, D,
-      bucket, n_split, L, split ? pv1 : v1, split ? pi1 : i1,
-      split ? pv2 : v2, split ? pi2 : i2);
+  float* o_v1 = split ? pv1 : v1;
+  int* o_i1 = split ? pi1 : i1;
+  float* o_v2 = split ? pv2 : v2;
+  int* o_i2 = split ? pi2 : i2;
+  cudaError_t err;
+  if (is_bf16) {
+    if (Dp % 16 != 0 || Dp < D || stages < 2 || stages > kMaxStages)
+      return cudaErrorInvalidValue;
+    auto kernel = bucket_max_mma<TOP2>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_mma);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)n_j * n_split * 2 * n_ut;
+    kernel<<<(unsigned)blocks, kThreads, smem_mma, stream>>>(
+        static_cast<const __nv_bfloat16*>(u),
+        static_cast<const __nv_bfloat16*>(v), bias, B, I, D, Dp,
+        copy_width(v, D), stages, bucket, n_split, L, o_v1, o_i1, o_v2, o_i2);
+  } else {
+    const size_t smem = 2 * (size_t)D * kStride * sizeof(float);
+    auto kernel = bucket_max_f32_kernel<TOP2>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(n_j * 2 * n_split, n_ut);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(u), static_cast<const float*>(v), bias, B,
+        I, D, bucket, n_split, L, o_v1, o_i1, o_v2, o_i2);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   const long long n = (long long)B * L;
@@ -271,25 +589,22 @@ cudaError_t launch(const void* u, const void* v, const float* bias, int B,
 // C entry point, bound with ctypes. u [B, D] and v [I, D] share one dtype
 // (is_bf16 ? bf16 : f32), row-major; bias [I] f32 or null (zeros). Outputs
 // [B, L] with L = 128 * ceil(I / (128 * bucket)); the top-2 outputs and the
-// [n_split, B, L] partials may be null when unused. Returns
+// [n_split, B, L] partials may be null when unused. dp, stages and smem
+// are the bf16 route's plan (`bucketed_topk.mma_plan`: padded depth, ring
+// slots, dynamic shared memory bytes), ignored for f32. Returns
 // cudaGetLastError() after the launches (0 = success).
 extern "C" int openrec_bucket_max(const void* u, const void* v,
                                   const float* bias, int is_bf16, int top2,
                                   int B, int I, int D, int bucket,
-                                  int n_split, int L, float* v1, int* i1,
-                                  float* v2, int* i2, float* pv1, int* pi1,
-                                  float* pv2, int* pi2, void* stream) {
+                                  int n_split, int L, int dp, int stages,
+                                  int smem, float* v1, int* i1, float* v2,
+                                  int* i2, float* pv1, int* pi1, float* pv2,
+                                  int* pi2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return top2 ? launch<__nv_bfloat16, true>(u, v, bias, B, I, D, bucket,
-                                              n_split, L, v1, i1, v2, i2,
-                                              pv1, pi1, pv2, pi2, s)
-                : launch<__nv_bfloat16, false>(u, v, bias, B, I, D, bucket,
-                                               n_split, L, v1, i1, v2, i2,
-                                               pv1, pi1, pv2, pi2, s);
-  }
-  return top2 ? launch<float, true>(u, v, bias, B, I, D, bucket, n_split, L,
-                                    v1, i1, v2, i2, pv1, pi1, pv2, pi2, s)
-              : launch<float, false>(u, v, bias, B, I, D, bucket, n_split,
-                                     L, v1, i1, v2, i2, pv1, pi1, pv2, pi2, s);
+  return top2 ? launch<true>(u, v, bias, is_bf16, B, I, D, dp, stages, smem,
+                             bucket, n_split, L, v1, i1, v2, i2, pv1, pi1,
+                             pv2, pi2, s)
+              : launch<false>(u, v, bias, is_bf16, B, I, D, dp, stages, smem,
+                              bucket, n_split, L, v1, i1, v2, i2, pv1, pi1,
+                              pv2, pi2, s);
 }

@@ -5,12 +5,11 @@ Counterpart of `openrec_tpu/data/samplers.py:34-223, 458-591`: the base
 (user, positive, uniform negative) and the full-catalog
 `EvaluationSampler` (mask batches, or -1-padded id lists with
 `device_masks=True`). The same seed gives bit-identical batches to the
-JAX package's numpy path (`use_native=False`).
-
-The JAX package's C++ feeder (`openrec_tpu/native/`) is not ported yet:
-`PairwiseSampler(use_native=True)` raises NotImplementedError and the
-default takes the numpy path. The other sampling strategies come with
-the models that use them.
+JAX package on both of `PairwiseSampler`'s paths: the numpy path
+(`use_native=False`) and the C++ feeder (`openrec_tpu_torch/native/`, the
+default whenever it builds, as in the JAX package). The other sampling
+strategies, `StratifiedPointwiseSampler`'s native path among them, come
+with the models that use them.
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -20,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from openrec_tpu_torch import native
 from openrec_tpu_torch.data.store import InteractionStore
 
 
@@ -105,23 +105,83 @@ class BatchSampler:
 
 
 class PairwiseSampler(BatchSampler):
-    """(user, positive, uniform-negative) triplets, vectorized numpy.
+    """(user, positive, uniform-negative) triplets.
 
-    use_native: None or False take the numpy path; True asks for the JAX
-    package's C++ feeder, which the port does not have yet, and raises.
+    use_native None (the default) takes the C++ feeder when the library is
+    available (`native.available()`) and the store has no pre-sampled
+    negatives, else vectorized numpy; True asks for the feeder and raises
+    when it cannot be built; False takes numpy.
+
+    The native non-chronological path applies the epoch permutation to a
+    private copy of the record arrays (one C++ Fisher-Yates per epoch,
+    sampler.cpp `shuffle_pairs`), so each batch is a sequential window,
+    and draws negatives with the block-prefetched rejection kernel
+    (`pairwise_negatives_seq`). Every record comes once per epoch, as on
+    the numpy path, in another (still uniform) order. Each call's seed is
+    drawn from the sampler's numpy rng.
     """
 
     def __init__(self, store, batch_size, seed=0, use_native=None,
                  chronological=False):
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ sampler feeder is not ported; use "
-                "use_native=False (the numpy path)")
         super().__init__(store, batch_size, seed,
                          chronological=chronological)
-        self.use_native = False
+        if use_native is None:
+            use_native = (native.available()
+                          and not store.contain_negatives())
+        self.use_native = bool(use_native)
+        if self.use_native:
+            self._rec_users = np.ascontiguousarray(
+                store._pos_users, dtype=np.int32)
+            self._rec_items = np.ascontiguousarray(
+                store._pos_items, dtype=np.int32)
+            self._hash_table = native.build_hash_table(store._pos_keys)
+            self._seq_pos = None      # shuffled at the first sample
+
+    def _reshuffle(self):
+        if self._seq_pos is None:
+            # private copies: the epoch shuffle works in place, and the
+            # arrays may be shared with the store or sibling workers
+            self._rec_users = self._rec_users.copy()
+            self._rec_items = self._rec_items.copy()
+        native.shuffle_pairs(self._rec_users, self._rec_items,
+                             int(self.rng.integers(0, 2 ** 63)))
+        self._seq_pos = 0
+
+    def _next_window(self, b):
+        """Sequential [b] window over the epoch-shuffled record copies, as
+        fresh arrays (the copies are reshuffled at the epoch wrap while a
+        consumer may still hold the batch)."""
+        n_rec = len(self._rec_users)
+        if self._seq_pos is None:
+            self._reshuffle()
+        u = np.empty(b, np.int32)
+        p = np.empty(b, np.int32)
+        filled = 0
+        while filled < b:
+            if self._seq_pos >= n_rec:
+                self._reshuffle()
+            take = min(b - filled, n_rec - self._seq_pos)
+            u[filled:filled + take] = \
+                self._rec_users[self._seq_pos:self._seq_pos + take]
+            p[filled:filled + take] = \
+                self._rec_items[self._seq_pos:self._seq_pos + take]
+            self._seq_pos += take
+            filled += take
+        return u, p
 
     def sample(self):
+        if self.use_native:
+            seed = int(self.rng.integers(0, 2 ** 63))
+            if self.chronological:
+                idx = self._next_record_indices(self.batch_size)
+                u, p, n = native.pairwise_batch_hash(
+                    self._hash_table, self._rec_users, self._rec_items,
+                    idx, self.store.total_items(), seed)
+                return {"user_id": u, "p_item_id": p, "n_item_id": n}
+            u, p = self._next_window(self.batch_size)
+            n = native.pairwise_negatives_seq(
+                self._hash_table, u, self.store.total_items(), seed)
+            return {"user_id": u, "p_item_id": p, "n_item_id": n}
         rec = self._next_records(self.batch_size)
         user_id = np.asarray(rec["user_id"], dtype=np.int32)
         p_item_id = np.asarray(rec["item_id"], dtype=np.int32)
@@ -129,6 +189,18 @@ class PairwiseSampler(BatchSampler):
             user_id, rng=self.rng).astype(np.int32)
         return {"user_id": user_id, "p_item_id": p_item_id,
                 "n_item_id": n_item_id}
+
+    def with_seed(self, seed):
+        clone = super().with_seed(seed)
+        if clone.use_native and not clone.chronological:
+            # copy from the store's arrays, not the parent's: the parent may
+            # be mid-epoch, and its private copy is reshuffled in place
+            clone._rec_users = np.ascontiguousarray(
+                clone.store._pos_users, dtype=np.int32)
+            clone._rec_items = np.ascontiguousarray(
+                clone.store._pos_items, dtype=np.int32)
+            clone._seq_pos = None     # fresh private copy + shuffle
+        return clone
 
 
 class EvaluationSampler:

@@ -14,7 +14,9 @@ On a CUDA tensor each wrapper launches its kernel (`csrc/bucket_max.cu`,
 built at first use) and counts the launch in its `launches` attribute; on
 a CPU tensor it runs the plain version (`bucket_max_plain`), which the
 tests hold against the JAX package and `chip_smoke.py` holds against the
-kernel on the card.
+kernel on the card. bf16 tables take the tensor-core route
+(`bucket_max_mma`: mma.sync fed by a cp.async ring; `mma_plan` sizes it),
+fp32 tables the CUDA-core route, which keeps the scores exact in fp32.
 
 Geometry is the JAX package's (`_bucket_call_setup`, :211-256): the
 `_MAX_VBLOCK_BYTES` shrink rule is a TPU VMEM budget, but it changes
@@ -26,15 +28,21 @@ are dropped.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 _LANES = 128                     # bucket stride of the strided layout
 _MAX_VBLOCK_BYTES = 6 << 20      # the JAX package's per-block table budget
-_MAX_DIM = 384                   # the kernel's shared-memory tiles: 2*D*68*4 B
+_MAX_DIM = 384                   # f32 route's shared memory: 2*D*68*4 B
 _BLOCK_USERS, _HALVES = 64, 2    # a kernel block: 64 users x 64 of 128 lanes
+_THREADS = 256                   # 8 warps, each 16 users x 32 lanes (mma)
 _PAD_SCORE = -1e30
+_SMEM_LIMIT = 232448             # bytes of shared memory a block can use
+_SMEM_PER_SM = 233472            # an SM's 228 KB, 1 KB of it kept per block
+_MAX_STAGES = 4                  # the mma route's deepest ring
 
 
 def _round_up(x, m):
@@ -91,20 +99,71 @@ def _kernel_fn():
     fn = _build.load("bucket_max").openrec_bucket_max
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                       p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p] + [i] * 11 + [p] * 9
         fn.restype = ctypes.c_int
     return fn
 
 
 def _n_split(B: int, L: int, bucket: int, sm_count: int) -> int:
     """Split the members of each bucket across blocks until the grid fills
-    the card once (a second pass merges the splits)."""
+    the card once (a second pass merges the splits). Both routes' blocks
+    are 64 users x 64 lanes, so one rule serves both."""
     blocks = (L // _LANES) * _HALVES * (-(-B // _BLOCK_USERS))
     n = 1
     while blocks * n < sm_count and n * 2 <= bucket:
         n *= 2
     return n
+
+
+class MmaPlan(NamedTuple):
+    bucket: int              # after the table-block shrink rule
+    L: int                   # buckets per user
+    Dp: int                  # D zero-padded to the mma depth (16)
+    stages: int              # member tiles in the cp.async ring
+    users: int               # per block (4 warps of 16)
+    lanes: int               # per block (2 warps of 32)
+    threads: int
+    n_split: int             # member splits (a merge pass when > 1)
+    blocks: int              # grid: (L/128) x n_split x 2 x ceil(B/64)
+    smem: int                # dynamic shared memory bytes per block
+    blocks_per_sm: int       # as the shared memory allows
+
+
+@functools.lru_cache(maxsize=256)
+def mma_plan(B: int, I: int, D: int, bucket: int, top2: bool,
+             sm_count: int = 132) -> MmaPlan:
+    """Launch plan of the bf16 tensor-core route for u [B, D], V [I, D].
+
+    A block owns 64 users x 64 lanes of one grid block (the same for K1
+    and K2, so `top2` changes nothing here): the user tile [64, Dp] and a
+    ring of `stages` member tiles [64, Dp] of bf16, each row padded by 16
+    bytes (an odd number of 16-byte chunks, so ldmatrix is free of bank
+    conflicts), plus a bias slice of 64 floats per stage. The ring is as
+    deep as two blocks an SM allow (at most 4), else as one block allows;
+    at least 2. Raises where D > 384 or the tiles do not fit."""
+    del top2
+    if not 1 <= D <= _MAX_DIM:
+        raise ValueError(f"embedding dim {D}: the kernels take 1 .. "
+                         f"{_MAX_DIM}")
+    bucket, _, L = bucket_geometry(I, D, 2, bucket)
+    Dp = _round_up(D, 16)
+    row = 2 * Dp + 16
+    fixed = _BLOCK_USERS * row
+    per_stage = _LANES // _HALVES * (row + 4)
+    stages = 0
+    for budget in (_SMEM_PER_SM // 2 - 1024, _SMEM_LIMIT):
+        stages = min(_MAX_STAGES, (budget - fixed) // per_stage)
+        if stages >= 2:
+            break
+    if stages < 2:
+        raise ValueError(f"D={D}: two ring stages do not fit in "
+                         f"{_SMEM_LIMIT} bytes of shared memory")
+    smem = fixed + stages * per_stage
+    n_split = _n_split(B, L, bucket, sm_count)
+    blocks = (L // _LANES) * n_split * _HALVES * (-(-B // _BLOCK_USERS))
+    return MmaPlan(bucket, L, Dp, stages, _BLOCK_USERS, _LANES // _HALVES,
+                   _THREADS, n_split, blocks, smem,
+                   min(2, _SMEM_PER_SM // (smem + 1024)))
 
 
 def _check(user_vecs, item_table, item_bias):
@@ -169,14 +228,21 @@ def _launch_ptrs(user_vecs, item_table, item_bias, top2: bool, bucket: int,
                  n_split: int, L: int, outs, parts, stream):
     """Launch the kernel into outputs given as device pointers: `outs` and
     `parts` are 4 each (v1, i1, v2, i2), None where unused; item_bias is
-    [I] or None. K3's bound pass calls this on its own workspace."""
+    [I] or None. bf16 inputs take the mma route with `mma_plan`'s depth,
+    ring and shared memory. K3's bound pass calls this on its own
+    workspace."""
     B, D = user_vecs.shape
+    I = item_table.shape[0]
+    bf16 = user_vecs.dtype == torch.bfloat16
+    plan = (0, 0, 0)
+    if bf16:
+        mp = mma_plan(B, I, D, bucket, top2)
+        plan = (mp.Dp, mp.stages, mp.smem)
     err = _kernel_fn()(
         user_vecs.data_ptr(), item_table.data_ptr(),
         None if item_bias is None else item_bias.data_ptr(),
-        int(user_vecs.dtype == torch.bfloat16), int(top2),
-        B, item_table.shape[0], D, bucket, n_split, L, *outs, *parts,
-        stream)
+        int(bf16), int(top2), B, I, D, bucket, n_split, L, *plan,
+        *outs, *parts, stream)
     if err != 0:
         raise RuntimeError(f"bucket_max kernel launch failed: CUDA error "
                            f"{err}")

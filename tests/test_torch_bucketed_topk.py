@@ -1,6 +1,7 @@
 """Port parity: the bucket-max kernels' plain PyTorch versions and
 `bucket_score_topk` against the JAX package's Pallas kernels (interpret
-mode on the CPU), on the same numpy inputs.
+mode on the CPU), on the same numpy inputs; and the launch plan of the
+kernels' bf16 tensor-core route (`mma_plan`).
 
 Tolerances: values rtol=atol=1e-5 (fp32 sums taken in another order);
 ids exact, except where the two picks score within 1e-5 of each other.
@@ -14,9 +15,10 @@ import torch
 from openrec_tpu.ops.bucketed_topk import (
     bucket_max2_scores as jax_bucket_max2, bucket_max_scores as jax_bucket_max,
     pallas_score_topk)
+import chip_smoke
 from openrec_tpu_torch.ops.bucketed_topk import (
     bucket_geometry, bucket_max2_scores, bucket_max_scores,
-    bucket_score_topk)
+    bucket_score_topk, mma_plan)
 
 torch.set_num_threads(1)
 
@@ -199,3 +201,45 @@ def test_bucket_one_matches_jax(per_bucket):
         assert torch.isinf(v2).all() and (v2 < 0).all()
         L = v2.shape[1]
         assert (i2 == torch.arange(L, dtype=torch.int32)[None, :]).all()
+
+
+# the bf16 shapes of chip_smoke.py's phase 2, then D x B x bucket
+PLAN_CASES = [(B, I, D, bucket) for _, B, I, D, dtype, bucket, _ in
+              chip_smoke.K1K2_CASES if dtype == "bfloat16"] + [
+    (B, 100_003, D, bucket) for D in (8, 50, 64, 128, 384)
+    for B in (1, 37, 256) for bucket in (1, 64, 256)]
+
+
+@pytest.mark.parametrize("B,I,D,bucket", PLAN_CASES)
+def test_mma_plan(B, I, D, bucket):
+    """The bf16 route's launch plan: it fits the card's shared memory, pads
+    D to the mma depth, covers every (grid block j, lane half, member
+    split, user tile) exactly once in the kernel's block order, and splits
+    members until the grid fills the card where the bucket allows."""
+    plan = mma_plan(B, I, D, bucket, top2=True, sm_count=132)
+    assert plan == mma_plan(B, I, D, bucket, top2=False, sm_count=132)
+    assert (plan.bucket, plan.L) == bucket_geometry(I, D, 2, bucket)[::2]
+    assert plan.Dp % 16 == 0 and D <= plan.Dp < D + 16
+    row = 2 * plan.Dp + 16               # bytes; odd in 16-byte chunks
+    assert row % 32 == 16
+    assert plan.smem == 64 * row + plan.stages * (64 * row + 64 * 4)
+    assert plan.smem <= 232_448 and 2 <= plan.stages <= 4
+    assert plan.blocks_per_sm >= 1
+    assert (plan.users, plan.lanes, plan.threads) == (64, 64, 256)
+    # the kernel's block order: user tile fastest, then lane half, split, j
+    n_j, n_ut = plan.L // 128, -(-B // 64)
+    idx = np.arange(plan.blocks)
+    ut, rest = idx % n_ut, idx // n_ut
+    h, z, j = rest & 1, (rest >> 1) % plan.n_split, (rest >> 1) // plan.n_split
+    assert plan.blocks == n_j * 2 * plan.n_split * n_ut
+    key = ((j * plan.n_split + z) * 2 + h) * n_ut + ut
+    assert j.max() == n_j - 1 and np.array_equal(np.sort(key), idx)
+    # blocks sharing a V tile (same j, half, split) are adjacent
+    assert (np.diff(rest)[ut[1:] != 0] == 0).all()
+    # member splits: every member in exactly one split
+    a_per = -(-plan.bucket // plan.n_split)
+    members = sorted(a for s in range(plan.n_split)
+                     for a in range(s * a_per,
+                                    min(plan.bucket, (s + 1) * a_per)))
+    assert members == list(range(plan.bucket))
+    assert plan.blocks >= 132 or plan.n_split * 2 > plan.bucket

@@ -1,7 +1,9 @@
 """Port parity: the host data layer (InteractionStore, PairwiseSampler,
 EvaluationSampler, Dataset, the pipeline and the CiteULike loaders)
-against the JAX package's numpy path (`use_native=False`). The same
-seed must give bit-identical arrays: same values, same dtypes.
+against the JAX package, on its numpy path (`use_native=False`) and on
+its defaults (the C++ feeder wherever it builds; the feeder's own stream
+tests are in `test_torch_native.py`). The same seed must give
+bit-identical arrays: same values, same dtypes.
 """
 
 import os
@@ -10,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from openrec_tpu import native as jnative
 from openrec_tpu.data import loaders as jloaders
 from openrec_tpu.data import pipeline as jpipeline
 from openrec_tpu.data.samplers import EvaluationSampler as JEval
 from openrec_tpu.data.samplers import PairwiseSampler as JPairwise
 from openrec_tpu.data.store import InteractionStore as JStore
+from openrec_tpu_torch import native
 from openrec_tpu_torch.data import (Dataset, EvaluationSampler,
                                     InteractionStore, PairwiseSampler,
                                     ShuffledArrayLoader, device_iterator,
@@ -92,7 +96,8 @@ def test_pairwise_sampler_bit_identical(chronological):
     ts = InteractionStore(data, USERS, ITEMS, seed=0)
     jsam = JPairwise(js, 48, seed=11, use_native=False,
                      chronological=chronological)
-    tsam = PairwiseSampler(ts, 48, seed=11, chronological=chronological)
+    tsam = PairwiseSampler(ts, 48, seed=11, use_native=False,
+                           chronological=chronological)
     if chronological:          # one finite epoch, the tail dropped
         got, want = list(tsam), list(jsam)
         assert len(got) == len(want) == 320 // 48
@@ -106,11 +111,31 @@ def test_pairwise_sampler_bit_identical(chronological):
                     jsam.with_seed((11, 1)).sample())
 
 
-def test_pairwise_native_request_raises():
-    ts = InteractionStore(make_interactions(), USERS, ITEMS, seed=0)
-    with pytest.raises(NotImplementedError):
-        PairwiseSampler(ts, 8, use_native=True)
-    assert PairwiseSampler(ts, 8).use_native is False
+@pytest.mark.parametrize("no_native", [None, "1"])
+def test_pairwise_default_follows_jax_choice(monkeypatch, no_native):
+    """use_native=None picks what the JAX package picks: the feeder where
+    it builds, numpy under OPENREC_TPU_NO_NATIVE=1 (read at the first
+    load, so both libraries' load caches start empty here)."""
+    if no_native is None:
+        monkeypatch.delenv("OPENREC_TPU_NO_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("OPENREC_TPU_NO_NATIVE", no_native)
+    _fresh_loads(monkeypatch)
+    data = make_interactions()
+    tsam = PairwiseSampler(InteractionStore(data, USERS, ITEMS, seed=0), 16,
+                           seed=4)
+    jsam = JPairwise(JStore(data, USERS, ITEMS, seed=0), 16, seed=4)
+    assert tsam.use_native == jsam.use_native == jnative.available()
+    if no_native == "1":
+        assert not tsam.use_native
+    for _ in range(3):
+        _assert_batches(tsam.sample(), jsam.sample())
+    # a store with pre-sampled negatives takes numpy in both packages
+    kw = dict(seed=0, num_negatives=5)
+    assert PairwiseSampler(InteractionStore(_explicit(), USERS, ITEMS, **kw),
+                           8).use_native is False
+    assert JPairwise(JStore(_explicit(), USERS, ITEMS, **kw), 8) \
+        .use_native is False
 
 
 @pytest.mark.parametrize("device_masks", [False, True])
@@ -142,23 +167,47 @@ def test_evaluation_sampler_sampled_negatives():
         EvaluationSampler(ts, 32, device_masks=True)
 
 
-def test_dataset_facade_matches_jax_workers():
-    data = make_interactions()
-    ds = Dataset(data, USERS, ITEMS, seed=5)
-    js = JStore(data, USERS, ITEMS, seed=5)
-    # one prefetch worker folds its id into the seed: (seed, 0)
-    want = JPairwise(js, 32, seed=5, use_native=False).with_seed((5, 0))
-    got = list(ds.pairwise(32, num_parallel_calls=1, take=4))
+def _fresh_loads(monkeypatch):
+    """Both packages decide once per process whether their library loads;
+    start from an empty cache so both decide now, on the same library
+    state."""
+    for mod in (jnative, native):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_tried", False)
+
+
+def test_dataset_facade_matches_jax_workers(monkeypatch):
+    """Dataset.pairwise against the JAX package's DEFAULT sampler (the
+    C++ feeder wherever it builds): 2,000 records, 50 users x 300 items,
+    seed 3, batches of 8, one prefetch worker, which folds its id into
+    the seed as (seed, 0)."""
+    _fresh_loads(monkeypatch)
+    rng = np.random.default_rng(0)
+    data = np.zeros(2000, dtype=[("user_id", np.int32),
+                                 ("item_id", np.int32)])
+    data["user_id"] = rng.integers(0, 50, len(data))
+    data["item_id"] = rng.integers(0, 300, len(data))
+    ds = Dataset(data, 50, 300, seed=3)
+    js = JStore(data, 50, 300, seed=3)
+    want = JPairwise(js, 8, seed=3).with_seed((3, 0))
+    got = list(ds.pairwise(8, num_parallel_calls=1, take=4))
     assert len(got) == 4
     for g in got:
         _assert_batches(g, want.sample())
-    two = list(ds.pairwise(32, num_parallel_calls=2, take=6))
+    if jnative.available():    # the reference's first native batch
+        np.testing.assert_array_equal(got[0]["user_id"],
+                                      [30, 18, 29, 20, 20, 19, 17, 25])
+    two = list(ds.pairwise(8, num_parallel_calls=2, take=6))
     assert len(two) == 6
     chrono = list(ds.pairwise(64, chronological=True))
     assert len(chrono) == len(data) // 64
-    ev = ds.evaluation(10, excl_datasets=[Dataset(data, USERS, ITEMS)],
+    want = JPairwise(js, 64, seed=3, chronological=True).with_seed((3, 0))
+    for g in chrono:
+        _assert_batches(g, want.sample())
+    ev = ds.evaluation(10, excl_datasets=[Dataset(data, 50, 300)],
                        device_masks=True)
-    assert isinstance(ev, EvaluationSampler) and len(ev) == 4
+    assert isinstance(ev, EvaluationSampler) \
+        and len(ev) == -(-len(js.warm_users()) // 10)
 
 
 def test_synthetic_and_fixture_loaders_match_jax():
