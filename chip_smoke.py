@@ -29,8 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
      with top-100 by 'pallas' (recall target 0.99), 'pallas2' (0.995),
      'exact' and 'approx'. Every returned score must equal the fp32 score
      at its id, recall against 'exact' must reach the target less 0.01,
-     both kernels' launch counters must move, and one eval_metrics batch
-     must match the dense metrics. Then the same at the BPR-CiteULike shape
+     K1's and K2's launch counters must read one a request and K3's 0
+     (the Amazon entry of the kernels line reports that count), and one
+     eval_metrics batch must match the dense metrics. Then the same at the BPR-CiteULike shape
      of bench.py (5,551 x 16,980 x 50, fp32 tables).
   4. time each kernel with CUDA events (median of 30 after warm-up) beside
      its plain version, a library yardstick (torch.matmul + torch.topk,
@@ -58,12 +59,32 @@ Phases, in order; any failure raises and exits non-zero:
      steps/s and examples/s of both feeds and the device's idle share
      under torch.profiler.
 
+  6. the DLRM-Criteo flagship. (a) The flagship layout of
+     __graft_entry__._flagship() (20 x 1,000 + 6 x 100,000 rows, m_spa 16,
+     bottom MLP 64-16, top 128-64-1, BCE, batch 256): one seeded
+     torch.Generator's weights on the card and copied to the CPU; forward
+     predictions with separate and fused tables, then 20 sparse steps of
+     the fused model through Trainer(sparse_tables=...), card against CPU
+     at rtol 1e-4, atol 1e-6. (b) Full Criteo-Kaggle width
+     (benchmarks/dlrm_throughput.py: 33,762,577 rows in 26 tables, m_spa
+     16, bottom 512-256-64-16, top 512-256-1, batch 4096, lr 1e-3) on
+     synthetic_criteo(1,000,000 records): the fused sparse step, host-fed
+     from ShuffledArrayLoader (10 warm-up, 300 timed and 5 profiled steps),
+     with val AUC on 8,192 val records before and after; then the dense
+     path (separate tables, lazy_adam, 20 timed steps). Per path: wall
+     ms/step, examples/s, device busy ms and idle share (torch.profiler),
+     peak memory. Checks: the loss falls and val AUC rises on the sparse
+     path, no value is NaN, 10,000 sampled rows of the fused table that no
+     batch touched are bit-identical afterwards, and a bf16 forward is
+     within 2e-2 of the fp32 one.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
-{"training": ...} line, a {"kernels": [...]} line (K1, K2, K3), and last
+{"training": ...} line, a {"dlrm": ...} line, a {"kernels": [...]} line
+(K1, K2, K3), and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. With --out FILE, the full record (every check, latency,
 profile and timing) is also written there as JSON.
@@ -408,18 +429,22 @@ def phase_serve(torch, port, cfg, rng, dev):
                 for _ in range(REQUESTS)]
     methods = METHODS
 
+    k3 = port.ops.topk.fused_score_topk
     bt.bucket_max_scores.launches = 0
     bt.bucket_max2_scores.launches = 0
+    k3.launches = 0
     results = {m: [] for m in methods}
     for req in requests:
         for m in methods:
             results[m].append(_request(scorer, params, req, m))
             torch.cuda.synchronize()
     launches = {"K1": bt.bucket_max_scores.launches,
-                "K2": bt.bucket_max2_scores.launches}
-    if launches["K1"] != REQUESTS or launches["K2"] != REQUESTS:
+                "K2": bt.bucket_max2_scores.launches,
+                "K3": k3.launches}
+    # serving answers through K1/K2; K3 is the training path's retrieval
+    if launches != {"K1": REQUESTS, "K2": REQUESTS, "K3": 0}:
         fail(f"{cfg['name']}: kernel launches {launches}, want "
-             f"{REQUESTS} each")
+             f"{REQUESTS} of K1 and K2 each and none of K3")
 
     recall = {}
     for m in methods:
@@ -803,6 +828,276 @@ def phase_train(torch, port, seed, dev):
     return out
 
 
+# ------------------------------------------------------------ phase 6
+
+# Criteo Kaggle's per-table cardinalities (benchmarks/dlrm_throughput.py:
+# 25-27, the facebookresearch/dlrm counts): 33,762,577 rows in 26 tables
+CRITEO_COUNTS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                 93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+# __graft_entry__._flagship(): the downscaled Criteo-like layout
+FLAGSHIP = dict(m_spa=16, ln_emb=(1000,) * 20 + (100000,) * 6,
+                ln_bot=(64, 16), ln_top=(128, 64, 1), dim_dense=13,
+                loss_func="bce")
+# benchmarks/dlrm_throughput.py:52-53: full Criteo-Kaggle width
+KAGGLE = dict(m_spa=16, ln_emb=CRITEO_COUNTS, ln_bot=(512, 256, 64, 16),
+              ln_top=(512, 256, 1), dim_dense=13, loss_func="bce")
+DLRM_RUN = dict(flagship_batch=256, flagship_steps=20, batch=4096, lr=1e-3,
+                records=1_000_000, val=8192, warmup_steps=10,
+                sparse_steps=300, dense_steps=20, profiled_steps=5,
+                untouched_sample=10_000)
+
+
+def roc_auc(pred, label):
+    """Binary ROC AUC by the rank sum, ties at their mean rank."""
+    pred, label = np.asarray(pred, np.float64), np.asarray(label) > 0.5
+    _, inv, counts = np.unique(pred, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    n_pos = label.sum()
+    n_neg = len(label) - n_pos
+    return float((ranks[label].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def dlrm_batch(rng, cfg, B):
+    return {"dense_features": rng.normal(size=(B, cfg["dim_dense"])).astype(
+                np.float32),
+            "sparse_features": np.stack(
+                [rng.integers(0, c, B) for c in cfg["ln_emb"]],
+                axis=1).astype(np.int32),
+            "label": rng.integers(0, 2, B).astype(np.float32)}
+
+
+def fused_params(torch, model):
+    """A separate-tables DLRM's parameters with the tables stacked as one
+    `embed_fused`, for a fused model holding the same weights."""
+    flat = {k: v.detach() for k, v in model.params().items()
+            if not k.startswith("embed_tables/")}
+    flat["embed_fused"] = torch.cat([t.detach() for t in model.embed_tables])
+    return flat
+
+
+def dlrm_card_vs_cpu(torch, port, seed, dev, cfg, run):
+    """The flagship's forward (separate and fused tables) and 20 sparse
+    steps of the fused model on the card against the same on the CPU,
+    from the same weights (rtol 1e-4, atol 1e-6)."""
+    from openrec_tpu_torch.training.sparse import dlrm_fused_table_spec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    card = {"separate": port.DLRM(**cfg, device=dev, generator=gen)}
+    cpu = {"separate": port.DLRM(**cfg, device="cpu")}
+    cpu["separate"].load_params({k: v.detach().cpu() for k, v in
+                                 card["separate"].params().items()})
+    card["fused"] = port.DLRM(**cfg, fused_tables=True, device=dev)
+    card["fused"].load_params(fused_params(torch, card["separate"]))
+    cpu["fused"] = port.DLRM(**cfg, fused_tables=True, device="cpu")
+    cpu["fused"].load_params(fused_params(torch, cpu["separate"]))
+    rng = np.random.default_rng(seed + 11)
+    B = run["flagship_batch"]
+    batch = dlrm_batch(rng, cfg, B)
+    out = {"batch": B, "tables": len(cfg["ln_emb"]),
+           "rows": int(sum(cfg["ln_emb"]))}
+    for layout in ("separate", "fused"):
+        with torch.no_grad():
+            p_card = card[layout].score(batch).cpu()
+            p_cpu = cpu[layout].score(batch)
+        if p_card.shape != (B,) or not torch.isfinite(p_card).all() \
+                or not torch.allclose(p_card, p_cpu, rtol=1e-4, atol=1e-6):
+            fail(f"dlrm flagship forward ({layout}): card and CPU disagree, "
+                 f"max {(p_card - p_cpu).abs().max().item()}")
+        out[f"forward_max_abs_diff_{layout}"] = \
+            (p_card - p_cpu).abs().max().item()
+    batches = [dlrm_batch(rng, cfg, B) for _ in range(run["flagship_steps"])]
+    losses = {}
+    for where, model, d in (("card", card["fused"], dev),
+                            ("cpu", cpu["fused"], "cpu")):
+        trainer = port.Trainer(model, lr=run["lr"], device=d,
+                               sparse_tables=dlrm_fused_table_spec(model))
+        losses[where] = trainer.train_step_multi(batches).cpu()
+    worst = 0.0
+    for key, p in cpu["fused"].params().items():
+        q = card["fused"].params()[key].detach().cpu()
+        worst = max(worst, (q - p.detach()).abs().max().item())
+        if not torch.allclose(q, p.detach(), rtol=1e-4, atol=1e-6):
+            fail(f"dlrm flagship: card and CPU disagree on '{key}' after "
+                 f"{len(batches)} sparse steps: max {worst}")
+    if not torch.allclose(losses["card"], losses["cpu"], rtol=1e-4,
+                          atol=1e-6):
+        fail("dlrm flagship: card and CPU losses disagree")
+    out.update({"sparse_steps": len(batches), "max_abs_param_diff": worst,
+                "max_abs_loss_diff":
+                    (losses["card"] - losses["cpu"]).abs().max().item()})
+    return out
+
+
+def criteo_arrays(raw, split, n=None):
+    sl = slice(0, n)
+    return {"dense_features": raw[f"X_int_{split}"][sl],
+            "sparse_features": raw[f"X_cat_{split}"][sl],
+            "label": raw[f"y_{split}"][sl]}
+
+
+def dlrm_val_auc(torch, model, val):
+    with torch.no_grad():
+        pred = model.score(val).cpu().numpy()
+    if not np.isfinite(pred).all():
+        fail("dlrm: non-finite val predictions")
+    return roc_auc(pred, val["label"]), pred
+
+
+def run_steps(torch, trainer, batches):
+    """Trainer.train_step over host batches; the losses stay on the card
+    until the end. Returns (losses [n], wall ms per step)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = [trainer.train_step(b)[0] for b in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    return torch.stack(losses).cpu().numpy(), ms
+
+
+def dlrm_path(torch, trainer, batches, run, what):
+    """Warm-up, timed and profiled host-fed steps of one training path:
+    wall ms/step, examples/s, device busy and idle share, and the peak
+    memory since the path's model was made."""
+    nw, nt = run["warmup_steps"], run[f"{what}_steps"]
+    run_steps(torch, trainer, batches[:nw])
+    losses, ms = run_steps(torch, trainer, batches[nw:nw + nt])
+    prof_it = iter(batches[nw + nt:])
+    profile = profile_device(torch, lambda: trainer.train_step(
+        next(prof_it)), run["profiled_steps"], ms)
+    if not np.isfinite(losses).all():
+        fail(f"dlrm {what}: non-finite loss")
+    window = max(1, nt // 6)
+    return {"steps": nt, "ms_per_step": ms,
+            "examples_per_s": run["batch"] / ms * 1e3,
+            "loss_window": window,
+            "loss_first": float(losses[:window].mean()),
+            "loss_last": float(losses[-window:].mean()),
+            "device_busy_ms_per_step": profile["device_busy_ms_per_call"],
+            "idle_share": profile["idle_share"],
+            "device_ops_per_step": profile["device_ops_per_call"],
+            "top_device_ms_per_step": profile["top_device_ms_per_call"],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated(trainer.device) / 1e9}
+
+
+def dlrm_criteo_kaggle(torch, port, seed, dev, cfg, run):
+    """Full Criteo-Kaggle width on synthetic_criteo's records: the fused
+    sparse step through Trainer(sparse_tables=...), val AUC before and
+    after, untouched rows bit-identical, one bf16 forward; then the dense
+    path (separate tables, lazy_adam)."""
+    from openrec_tpu_torch.data import ShuffledArrayLoader, loaders
+    from openrec_tpu_torch.training.sparse import dlrm_fused_table_spec
+    raw = loaders.synthetic_criteo(num_records=run["records"],
+                                   counts=cfg["ln_emb"], seed=seed)
+    val = criteo_arrays(raw, "val", run["val"])
+    loader = iter(ShuffledArrayLoader(criteo_arrays(raw, "train"),
+                                      run["batch"], seed=seed))
+    n_batches = run["warmup_steps"] + run["sparse_steps"] \
+        + run["profiled_steps"]
+    batches = [next(loader) for _ in range(n_batches)]
+    offsets = np.concatenate([[0], np.cumsum(cfg["ln_emb"])])[:-1]
+    rows = int(sum(cfg["ln_emb"]))
+    used = np.zeros(rows, bool)
+    for b in batches:
+        used[(b["sparse_features"] + offsets).reshape(-1)] = True
+    rng = np.random.default_rng(seed + 13)
+    sample = np.sort(rng.choice(rows, run["untouched_sample"],
+                                replace=False))
+    out = {"config": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in cfg.items()} | {
+        "rows": rows, "batch": run["batch"], "lr": run["lr"],
+        "train_records": len(raw["y_train"]), "val_records": run["val"]}}
+
+    # the sparse path: one fused table + O(batch) Adam
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = port.DLRM(**cfg, fused_tables=True, device=dev, generator=gen)
+    sample_t = torch.as_tensor(sample, device=dev)
+    before = model.embed_fused.detach()[sample_t].cpu()
+    trainer = port.Trainer(model, lr=run["lr"], device=dev,
+                           sparse_tables=dlrm_fused_table_spec(model))
+    auc0, _ = dlrm_val_auc(torch, model, val)
+    sparse = dlrm_path(torch, trainer, batches, run, "sparse")
+    auc, pred32 = dlrm_val_auc(torch, model, val)
+    sparse.update({"val_auc_step0": auc0, "val_auc": auc})
+    after = model.embed_fused.detach()[sample_t].cpu()
+    untouched = ~used[sample]
+    same = torch.equal(after[untouched], before[untouched])
+    moved = (after[~untouched] != before[~untouched]).any(dim=1)
+    sparse["untouched_rows"] = {
+        "sampled": int(len(sample)), "untouched": int(untouched.sum()),
+        "bit_identical": same,
+        "touched_sampled": int((~untouched).sum()),
+        "touched_moved": int(moved.sum())}
+    model.compute_dtype = "bfloat16"
+    with torch.no_grad():
+        pred16 = model.score(val).cpu().numpy()
+    model.compute_dtype = "float32"
+    out["bf16_forward_max_abs_diff"] = float(np.abs(pred16 - pred32).max())
+    out["sparse"] = sparse
+    if not sparse["loss_last"] < sparse["loss_first"]:
+        fail(f"dlrm sparse: loss did not fall: {sparse['loss_first']} "
+             f"-> {sparse['loss_last']}")
+    if not auc > auc0:
+        fail(f"dlrm sparse: val AUC did not rise: {auc0} -> {auc}")
+    # at full width most sampled rows lie in the big tables, untouched
+    if not same or untouched.sum() < len(sample) // 4 \
+            or moved.sum() < 0.9 * (~untouched).sum():
+        fail(f"dlrm sparse: untouched rows changed or touched rows did "
+             f"not move ({sparse['untouched_rows']})")
+    if not np.isfinite(pred16).all() \
+            or out["bf16_forward_max_abs_diff"] > 2e-2:
+        fail(f"dlrm bf16 forward: max |diff| "
+             f"{out['bf16_forward_max_abs_diff']} > 2e-2")
+    del model, trainer, before, after
+    torch.cuda.empty_cache()
+
+    # the dense path: separate tables, lazy_adam over every row
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = port.DLRM(**cfg, device=dev, generator=gen)
+    trainer = port.Trainer(model, optimizer=port.lazy_adam(run["lr"]),
+                           device=dev)
+    out["dense"] = dlrm_path(torch, trainer, batches, run, "dense")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dlrm(torch, port, seed, dev, flagship=FLAGSHIP, kaggle=KAGGLE,
+               run=DLRM_RUN):
+    out = {"flagship_card_vs_cpu": dlrm_card_vs_cpu(
+        torch, port, seed, dev, flagship, run)}
+    f = out["flagship_card_vs_cpu"]
+    print(f"dlrm flagship card-vs-cpu: forward max |diff| "
+          f"{f['forward_max_abs_diff_separate']:.3g} (separate) "
+          f"{f['forward_max_abs_diff_fused']:.3g} (fused), "
+          f"{f['sparse_steps']} sparse steps: params max |diff| "
+          f"{f['max_abs_param_diff']:.3g}, losses "
+          f"{f['max_abs_loss_diff']:.3g}", flush=True)
+    out["criteo_kaggle"] = k = dlrm_criteo_kaggle(torch, port, seed, dev,
+                                                  kaggle, run)
+    for what in ("sparse", "dense"):
+        r = k[what]
+        print(f"dlrm criteo-kaggle {what}: {r['ms_per_step']:.3f} ms/step, "
+              f"{r['examples_per_s']:.0f} examples/s, device busy "
+              f"{r['device_busy_ms_per_step']:.3f} ms/step, idle "
+              f"{r['idle_share']:.3f}, peak "
+              f"{r['max_memory_allocated_gb']:.2f} GB, mean loss of the "
+              f"first / last {r['loss_window']} steps "
+              f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}",
+              flush=True)
+    s = k["sparse"]
+    print(f"dlrm criteo-kaggle sparse: val AUC {s['val_auc_step0']:.4f} -> "
+          f"{s['val_auc']:.4f}; untouched rows "
+          + json.dumps(s["untouched_rows"])
+          + f"; bf16 forward max |diff| {k['bf16_forward_max_abs_diff']:.3g}",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -947,10 +1242,11 @@ def time_k3(torch, tk, gen, dev, B, I, D, dtype):
                       **plan._asdict()}}
 
 
-def phase_time_k3(torch, tk, gen, dev, err):
+def phase_time_k3(torch, tk, gen, dev, err, amazon_launches):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
-    shape (bf16) beside them. `launches` is filled in by phase 5."""
+    shape (bf16) beside them. `launches` is filled in by phase 5;
+    `amazon_launches` is K3's count over phase 3's Amazon requests."""
     entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
              "route": "cuda",
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
@@ -961,6 +1257,7 @@ def phase_time_k3(torch, tk, gen, dev, err):
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
                               AMAZON["dim"], "bfloat16")
+    entry["amazon"]["launches"] = amazon_launches
     for name, t in (("citeulike", entry), ("amazon", entry["amazon"])):
         print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
               f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
@@ -974,6 +1271,7 @@ def main(argv=None):
     ap.add_argument("--out", type=Path, default=None,
                     help="write the full record here as JSON")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1026,18 +1324,30 @@ def main(argv=None):
     # phase 4
     kernels = phase_time(torch, bt, gen, dev, errs,
                          serve["amazon"]["launches"])
-    kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"]))
+    kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
+                                 serve["amazon"]["launches"]["K3"]))
     torch.cuda.empty_cache()
 
     # phase 5
     train = phase_train(torch, port, args.seed, dev)
     kernels[-1]["launches"] = train["launches"]["K3"]
+    torch.cuda.empty_cache()
+
+    # phase 6
+    t6 = time.perf_counter()
+    dlrm = phase_dlrm(torch, port, args.seed, dev)
+    dlrm["phase_s"] = time.perf_counter() - t6
+    total_s = time.perf_counter() - t_start
+    print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s; chip_smoke: "
+          f"{total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
-            {"card": smi, "build_s": build_s, "compare": compare_report,
-             "serve": serve, "training": train, "kernels": kernels},
+            {"card": smi, "build_s": build_s, "total_s": total_s,
+             "compare": compare_report,
+             "serve": serve, "training": train, "kernels": kernels,
+             "dlrm": dlrm},
             indent=1))
     print(json.dumps({"requests": {name: {
         "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
@@ -1052,6 +1362,18 @@ def main(argv=None):
                   | {"idle_share": v["profile"]["idle_share"]}
                   for k, v in train["speed"].items()},
         "retrieval": train["retrieval"]}}))
+    k = dlrm["criteo_kaggle"]
+    print(json.dumps({"dlrm": {
+        "flagship_card_vs_cpu": dlrm["flagship_card_vs_cpu"],
+        "criteo_kaggle": {
+            what: {m: k[what][m] for m in (
+                "ms_per_step", "examples_per_s", "device_busy_ms_per_step",
+                "idle_share", "max_memory_allocated_gb", "loss_first",
+                "loss_last")} for what in ("sparse", "dense")}
+        | {"val_auc_step0": k["sparse"]["val_auc_step0"],
+           "val_auc": k["sparse"]["val_auc"],
+           "untouched_rows": k["sparse"]["untouched_rows"],
+           "bf16_forward_max_abs_diff": k["bf16_forward_max_abs_diff"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

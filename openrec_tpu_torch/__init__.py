@@ -22,15 +22,20 @@ Ported so far, the BPR-CiteULike main path end to end:
     bucket-max kernels K1/K2, and the exact fused score + top-k kernel K3
     (`ops.fused_score_topk`);
   - parameter and optimizer-state conversion from the JAX package.
+
+And the DLRM-Criteo flagship: MLP, the dot interaction, BCE / MSE,
+DLRM (separate or fused tables, bf16 compute), the Criteo loaders,
+optax-form `adam`, and the O(batch) sparse Adam step with flat dedup
+(`training.sparse`), also behind `Trainer(sparse_tables=...)`.
 """
 
 __version__ = "0.1.0"
 
 from openrec_tpu_torch.device import resolve_device
-from openrec_tpu_torch.convert import (opt_state_from_jax,
-                                       opt_state_to_numpy, params_from_jax,
-                                       params_to_numpy)
-from openrec_tpu_torch.models import BPR, Recommender
+from openrec_tpu_torch.convert import (
+    opt_state_from_jax, opt_state_to_numpy, params_from_jax, params_to_numpy,
+    sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
+from openrec_tpu_torch.models import BPR, DLRM, Recommender, criteo_dlrm
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
@@ -39,9 +44,13 @@ from openrec_tpu_torch.metrics import (
     chunked_dot_eval_metrics, metrics_from_counts)
 from openrec_tpu_torch.serving import CachedDotProductScorer
 from openrec_tpu_torch.modules import (
-    censor_max_norm, censor_norm, embedding_init, embedding_lookup, losses)
+    MLP, censor_max_norm, censor_norm, embedding_init, embedding_lookup,
+    losses, second_order_interaction)
 from openrec_tpu_torch.data import (
     Dataset, DevicePairwiseSampler, EvaluationSampler, InteractionStore,
     PairwiseSampler)
-from openrec_tpu_torch.training import (Trainer, keras_adam, lazy_adagrad,
-                                        lazy_adam)
+from openrec_tpu_torch.training import (Trainer, adam, keras_adam,
+                                        lazy_adagrad, lazy_adam)
+from openrec_tpu_torch.training.sparse import (
+    dlrm_fused_table_spec, dlrm_table_specs, make_sparse_device_loop,
+    make_sparse_train_step)

@@ -7,11 +7,21 @@ never imports JAX. Keys are the "/"-joined tree paths that
 `params_from_jax(tree)` and a restored checkpoint name every tensor alike
 (`{"user_embed": ..., "item_embed": ..., "item_bias": ...}` for BPR).
 
+DLRM's tree holds lists (`{"mlp_bot": [{"w", "b"}, ...], "embed_tables":
+[...]}`), which flatten to `mlp_bot/0/w` and `embed_tables/3`: the names
+`Recommender.params()` gives.
+
 Optimizer states cross the same way: `opt_state_from_jax` takes the JAX
-`LazyAdamState` (count, mu, nu; lazy_adam and keras_adam) or lazy_adagrad's
-accumulator dict, with numpy leaves, and `opt_state_to_numpy` gives them
-back as nested dicts. A NamedTuple level is keyed by its field names, as
-JAX names it (`opt_state/count`, `opt_state/mu/item_embed`).
+`LazyAdamState` (count, mu, nu; lazy_adam and keras_adam), optax.adam's
+chain state (ScaleByAdamState(count, mu, nu), EmptyState()) or
+lazy_adagrad's accumulator dict, with numpy leaves, and
+`opt_state_to_numpy` gives them back as nested dicts. A NamedTuple level
+is keyed by its field names, as JAX names it (`opt_state/count`,
+`opt_state/mu/item_embed`). The sparse step's state {"sparse":
+SparseAdamState(count, mu, nu), "dense": <dense optimizer state>} crosses
+with `sparse_opt_state_from_jax` / `sparse_opt_state_to_numpy`; its
+moments stay keyed by the table's path tuple, as in JAX
+(`("embed_fused",)`).
 """
 
 from __future__ import annotations
@@ -84,16 +94,27 @@ def params_to_numpy(flat: dict) -> dict:
     return tree
 
 
+def _count(count, dev):
+    return torch.as_tensor(np.array(count, np.int32)).to(dev)
+
+
 def opt_state_from_jax(state, device=None):
     """The port's optimizer state from a JAX one with numpy leaves
     (`jax.tree.map(np.asarray, opt_state)`): a `LazyAdamState` (count,
-    mu, nu) for lazy_adam / keras_adam, a {name: tensor} dict for
-    lazy_adagrad."""
-    from openrec_tpu_torch.training.optim import LazyAdamState
+    mu, nu) for lazy_adam / keras_adam, (ScaleByAdamState, EmptyState)
+    for optax.adam, a {name: tensor} dict for lazy_adagrad."""
+    from openrec_tpu_torch.training.optim import (EmptyState, LazyAdamState,
+                                                  ScaleByAdamState)
     dev = resolve_device(device)
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        adam_state = state[0]
+        return (ScaleByAdamState(count=_count(adam_state.count, dev),
+                                 mu=params_from_jax(adam_state.mu, dev),
+                                 nu=params_from_jax(adam_state.nu, dev)),
+                EmptyState())
     if hasattr(state, "_fields"):
         return LazyAdamState(
-            count=torch.as_tensor(np.array(state.count, np.int32)).to(dev),
+            count=_count(state.count, dev),
             mu=params_from_jax(state.mu, dev),
             nu=params_from_jax(state.nu, dev))
     return params_from_jax(state, dev)
@@ -104,3 +125,34 @@ def opt_state_to_numpy(state) -> dict:
     {"count", "mu", "nu"} for the Adams (`LazyAdamState(**d)` on the JAX
     side), {name: accumulator} for lazy_adagrad."""
     return params_to_numpy(flatten_tree(state))
+
+
+def sparse_opt_state_from_jax(state, device=None) -> dict:
+    """The sparse step's state from JAX's `make_sparse_train_step` state
+    with numpy leaves: {"sparse": SparseAdamState(count, {path: mu},
+    {path: nu}), "dense": the dense optimizer's state}."""
+    from openrec_tpu_torch.training.sparse import SparseAdamState
+    dev = resolve_device(device)
+    sparse = state["sparse"]
+
+    def moments(tree):
+        return {path: torch.as_tensor(np.require(v, requirements="W")).to(dev)
+                for path, v in tree.items()}
+    return {"sparse": SparseAdamState(count=_count(sparse.count, dev),
+                                      mu=moments(sparse.mu),
+                                      nu=moments(sparse.nu)),
+            "dense": opt_state_from_jax(state["dense"], dev)}
+
+
+def sparse_opt_state_to_numpy(state: dict) -> dict:
+    """Inverse of `sparse_opt_state_from_jax`, as numpy: {"sparse":
+    {"count", "mu": {path: array}, "nu": {path: array}}, "dense": nested
+    dicts as `opt_state_to_numpy` gives them}."""
+    sparse = state["sparse"]
+
+    def numpy(t):
+        return t.detach().cpu().numpy()
+    return {"sparse": {"count": numpy(sparse.count),
+                       "mu": {p: numpy(v) for p, v in sparse.mu.items()},
+                       "nu": {p: numpy(v) for p, v in sparse.nu.items()}},
+            "dense": opt_state_to_numpy(state["dense"])}

@@ -1,12 +1,18 @@
-"""Dataset loaders: the CiteULike file layout and its synthetic stand-in.
+"""Dataset loaders: CiteULike and Criteo, their file layouts and their
+synthetic stand-ins.
 
-Counterpart of `openrec_tpu/data/loaders.py:27-41, 131-153`:
+Counterpart of `openrec_tpu/data/loaders.py:27-41, 101-207`:
 `load_citeulike` reads `user_data_{train,val,test}.npy` structured arrays
 (user_id/item_id fields) from `<dataset_folder>/citeulike/`;
 `synthetic_citeulike` draws the same shape with numpy (5,551 users x
-16,980 items, 204,057 records split 80/10/10), bit-identical to the JAX
-package's for the same seed. The other datasets come with the models
-that use them.
+16,980 items, 204,057 records split 80/10/10). `load_criteo` reads
+`<dataset_folder>/criteo/kaggle_processed.npz` (X_int [N, 13] raw counts,
+X_cat [N, 26], y, counts) and splits it 6/7 train, 1/14 val, 1/14 test
+with the dense features through log(x + 1); `write_synthetic_criteo_npz`
+writes that file's layout and `synthetic_criteo` draws the split arrays
+directly, with labels a model can learn. Every function is bit-identical
+to the JAX package's for the same seed. The other datasets come with the
+models that use them.
 """
 
 from __future__ import annotations
@@ -54,4 +60,82 @@ def synthetic_citeulike(num_records=204057, seed=0):
     raw["train_data"] = all_data[:int(n * 0.8)]
     raw["val_data"] = all_data[int(n * 0.8):int(n * 0.9)]
     raw["test_data"] = all_data[int(n * 0.9):]
+    return raw
+
+
+def load_criteo(dataset_folder="dataset/", seed=None):
+    """The reference's split (tf2_examples/dataloader.py:44-83)."""
+    rng = np.random.default_rng(seed)
+    with np.load(os.path.join(dataset_folder, "criteo",
+                              "kaggle_processed.npz")) as data:
+        X_int, X_cat = data["X_int"], data["X_cat"]
+        y, counts = data["y"], data["counts"]
+
+    indices = np.array_split(np.arange(len(y)), 7)
+    indices = [rng.permutation(part) for part in indices]
+    train_idx = rng.permutation(np.concatenate(indices[:-1]))
+    val_idx, test_idx = np.array_split(indices[-1], 2)
+
+    raw = {"counts": counts}
+    for split, idx in (("train", train_idx), ("val", val_idx),
+                       ("test", test_idx)):
+        raw[f"X_cat_{split}"] = X_cat[idx].astype(np.int32)
+        raw[f"X_int_{split}"] = np.log(X_int[idx] + 1).astype(np.float32)
+        raw[f"y_{split}"] = y[idx].astype(np.float32)
+    return raw
+
+
+def _criteo_counts(rng, counts):
+    if counts is None:
+        # Criteo Kaggle's 26 tables span ~10 to ~10M rows; a downscaled
+        # long-tail layout keeps the shape.
+        counts = np.array([int(10 ** (1 + 5 * rng.random()))
+                           for _ in range(26)])
+    return np.asarray(counts)
+
+
+def write_synthetic_criteo_npz(path, num_records=100000, counts=None,
+                               seed=0):
+    """Write a synthetic kaggle_processed.npz in the on-disk layout that
+    `load_criteo` reads (X_int [N, 13] raw counts, X_cat [N, 26], y [N],
+    counts [26]). Returns the file size in bytes."""
+    rng = np.random.default_rng(seed)
+    counts = _criteo_counts(rng, counts)
+    n = int(num_records)
+    X_cat = np.stack([rng.integers(0, c, n) for c in counts],
+                     axis=1).astype(np.int32)
+    # raw integer counts (the loader applies log(x+1) itself)
+    X_int = (rng.pareto(2.0, size=(n, 13)) * 100).astype(np.int32)
+    logits = (np.log(X_int[:, 0] + 1.0) - np.log(X_int[:, 1] + 1.0)
+              + (X_cat[:, 0] % 7 < 3).astype(np.float32))
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits + 1.5))).astype(
+        np.int32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, X_int=X_int, X_cat=X_cat, y=y, counts=counts)
+    return os.path.getsize(path)
+
+
+def synthetic_criteo(num_records=100000, counts=None, seed=0):
+    """Split Criteo-layout arrays drawn with numpy: dense log(x + 1) of
+    Pareto counts, uniform ids per table, and labels drawn from a logistic
+    of two dense features and table 0's id, so a model can learn them."""
+    rng = np.random.default_rng(seed)
+    counts = _criteo_counts(rng, counts)
+    raw = {"counts": counts}
+    n = num_records
+    X_cat = np.stack([rng.integers(0, c, n) for c in counts],
+                     axis=1).astype(np.int32)
+    X_int = np.log(rng.pareto(2.0, size=(n, 13)) * 100 + 1).astype(
+        np.float32)
+    logits = (X_int[:, 0] - X_int[:, 1]
+              + (X_cat[:, 0] % 7 < 3).astype(np.float32))
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits + 1.5))).astype(
+        np.float32)
+    splits = [("train", slice(0, int(n * 6 / 7))),
+              ("val", slice(int(n * 6 / 7), int(n * 13 / 14))),
+              ("test", slice(int(n * 13 / 14), n))]
+    for name, sl in splits:
+        raw[f"X_cat_{name}"] = X_cat[sl]
+        raw[f"X_int_{name}"] = X_int[sl]
+        raw[f"y_{name}"] = y[sl]
     return raw

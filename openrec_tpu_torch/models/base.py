@@ -2,11 +2,14 @@
 
 Counterpart of `openrec_tpu/models/base.py`. The JAX package passes a
 params pytree into pure functions; here the parameters live on the
-`nn.Module`, named by the JAX pytree's "/"-joined paths so that
-`convert.params_from_jax` output and npz checkpoints load by name:
+`nn.Module`. `params()` and `load_params` name them by the JAX pytree's
+"/"-joined paths (`mlp_bot/0/w`, `embed_tables/3`), the module's "."-joined
+names with "." read as "/", so that `convert.params_from_jax` output and
+npz checkpoints load by name. BPR's names hold neither character.
 
   model = BPR(..., device="cuda")
   loss, aux = model.loss(batch)         # autograd-able
+  loss, aux = model.loss(batch, tables={"item_embed": view})
   scores = model.score(batch)           # full-catalog serving
   model.load_params(flat)               # {path: tensor} from JAX / npz
   grads = model.grad_transform(grads, batch)   # trainer hooks, identity
@@ -22,9 +25,19 @@ from torch import nn
 class Recommender(nn.Module):
     """Base class; subclasses define loss/score."""
 
-    def loss(self, batch: dict):
-        """Returns (total_loss, aux_dict). aux carries per-part losses."""
+    def loss(self, batch: dict, tables: dict | None = None):
+        """Returns (total_loss, aux_dict). aux carries per-part losses.
+        `tables` replaces embedding tables by name for this call, e.g. with
+        the gathered views of the O(batch) sparse step
+        (`training/sparse.py`), so that autograd never reaches the full
+        table."""
         raise NotImplementedError
+
+    def table(self, name: str, tables: dict | None = None):
+        """The embedding table `name` ("/"-path), or its override."""
+        if tables and name in tables:
+            return tables[name]
+        return self.get_parameter(name.replace("/", "."))
 
     def score(self, batch: dict) -> torch.Tensor:
         """Full-catalog scores [B, total_items] for serving/evaluation."""
@@ -43,14 +56,15 @@ class Recommender(nn.Module):
 
     def params(self) -> dict:
         """Flat {path: parameter}, keyed like the JAX params pytree."""
-        return dict(self.named_parameters())
+        return {name.replace(".", "/"): p
+                for name, p in self.named_parameters()}
 
     @torch.no_grad()
     def load_params(self, flat: dict) -> None:
         """Copy a flat {path: tensor/array} dict (`convert.params_from_jax`,
         `checkpoint.restore`) into the parameters. Every parameter must be
         present with its shape."""
-        for key, param in self.named_parameters():
+        for key, param in self.params().items():
             if key not in flat:
                 raise KeyError(f"missing parameter '{key}'")
             value = torch.as_tensor(flat[key])

@@ -35,14 +35,15 @@ class BPR(Recommender):
         self.item_bias = nn.Parameter(
             torch.zeros((total_items, 1), device=dev))
 
-    def loss(self, batch: dict):
-        user_vec = embedding_lookup(self.user_embed, batch["user_id"])
+    def loss(self, batch: dict, tables: dict | None = None):
+        user_vec = embedding_lookup(self.table("user_embed", tables),
+                                    batch["user_id"])
         # One gather (and one backward scatter) for pos+neg instead of two.
         p_ids = torch.as_tensor(batch["p_item_id"], device=user_vec.device)
         n_ids = torch.as_tensor(batch["n_item_id"], device=user_vec.device)
         pn = torch.cat([p_ids, n_ids])
-        vecs = embedding_lookup(self.item_embed, pn)
-        biases = embedding_lookup(self.item_bias, pn)
+        vecs = embedding_lookup(self.table("item_embed", tables), pn)
+        biases = embedding_lookup(self.table("item_bias", tables), pn)
         B = p_ids.shape[0]
         p_vec, n_vec = vecs[:B], vecs[B:]
         p_bias, n_bias = biases[:B], biases[B:]

@@ -28,7 +28,10 @@ def embedding_init(num: int, dim: int, zero_init: bool = False,
 def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
     """Rows `ids` of `table`. Out-of-range ids CLAMP to the nearest row, as
     `jnp.take(mode="clip")` does (`openrec_tpu/modules/embedding.py:38`);
-    `index_select` alone would raise on them."""
+    `index_select` alone would raise on them. A view that carries its own
+    `lookup` (`training.sparse.SubTable`) resolves the ids itself."""
+    if hasattr(table, "lookup"):
+        return table.lookup(ids)
     ids = torch.as_tensor(ids, device=table.device)
     safe = ids.long().clamp(0, table.shape[0] - 1)
     return table.index_select(0, safe.reshape(-1)).reshape(

@@ -1,7 +1,8 @@
 """Loss functions: batch in, scalar out.
 
-Counterpart of the BPR losses of `openrec_tpu/modules/losses.py:32-48`;
-the other losses of that module come with the models that use them.
+Counterpart of the BPR losses of `openrec_tpu/modules/losses.py:32-48`
+and DLRM's `mse_loss` / `bce_loss` (`:131-140`); the other losses of that
+module come with the models that use them.
 """
 
 from __future__ import annotations
@@ -29,3 +30,16 @@ def pairwise_log_loss(user_vec, p_item_vec, n_item_vec,
     if n_item_bias is not None:
         neg = neg + n_item_bias.reshape(neg.shape)
     return -torch.mean(F.logsigmoid(torch.clamp(pos - neg, min=-30.0)))
+
+
+def mse_loss(label, pred):
+    """Mean squared error (keras MeanSquaredError, mean reduction)."""
+    return torch.mean((label - pred) ** 2)
+
+
+def bce_loss(label, prob, eps=1e-7):
+    """Binary cross-entropy on probabilities (keras BinaryCrossentropy
+    defaults: probabilities clipped to [eps, 1 - eps], mean reduction)."""
+    p = torch.clamp(prob, eps, 1.0 - eps)
+    return -torch.mean(label * torch.log(p)
+                       + (1.0 - label) * torch.log(1.0 - p))

@@ -14,6 +14,14 @@ bias correction folded into the step size, alpha = lr*sqrt(c2)/c1 in
 fp32 from an int32 step count, and eps = 1e-7 OUTSIDE the sqrt,
 step = -alpha*m/(sqrt(v)+eps).
 
+`adam` is optax's Adam (`optax.adam`), the sparse step's default for
+the dense parameters (`openrec_tpu/training/sparse.py:489-490`): the
+moments are bias-corrected, m_hat = m/(1 - b1^t), v_hat = v/(1 - b2^t),
+and the step is -lr * m_hat/(sqrt(v_hat) + eps), eps default 1e-8. It
+differs from the keras form at O(eps). Its state mirrors optax's chain
+state, (ScaleByAdamState(count, mu, nu), EmptyState()), so a checkpoint
+names it as the JAX package does (`opt_state/dense/0/mu/<name>`).
+
 `lazy_adam` updates only the rows of table-shaped leaves (ndim >=
 `min_sparse_ndim`) whose gradient row has any nonzero entry; untouched
 rows keep their moments and parameters (a row that is in the batch but
@@ -44,6 +52,16 @@ class LazyAdamState(NamedTuple):
     nu: dict
 
 
+class ScaleByAdamState(NamedTuple):
+    count: torch.Tensor      # int32 scalar on the parameters' device
+    mu: dict
+    nu: dict
+
+
+class EmptyState(NamedTuple):
+    """optax's stateless link of a chain (scale_by_learning_rate)."""
+
+
 def apply_updates(params: dict, updates: dict) -> dict:
     """params[name] += updates[name], in place (the parameters of a module
     stay the same tensors); returns params."""
@@ -53,13 +71,14 @@ def apply_updates(params: dict, updates: dict) -> dict:
     return params
 
 
-def _device_of(params: dict) -> torch.device:
+def _device_of(params: dict, device=None) -> torch.device:
+    """The parameters' device; `device` (default CUDA) for an empty tree."""
     for p in params.values():
         return p.device
-    return resolve_device(None)
+    return resolve_device(device)
 
 
-def _zeros(params: dict) -> dict:
+def _zeros(params: dict, device=None) -> dict:
     return {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
             for k, p in params.items()}
 
@@ -77,10 +96,39 @@ def _adam_alpha(count, learning_rate, b1, b2):
     return learning_rate * torch.sqrt(c2) / c1
 
 
-def _adam_init(params):
+def _adam_init(params, device=None):
+    """Zero moments and count; `device` places the count of an empty
+    tree (the sparse step's dense part when every parameter is a table)."""
     return LazyAdamState(
-        count=torch.zeros([], dtype=torch.int32, device=_device_of(params)),
+        count=torch.zeros([], dtype=torch.int32,
+                          device=_device_of(params, device)),
         mu=_zeros(params), nu=_zeros(params))
+
+
+def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: chain(scale_by_adam, scale_by_learning_rate), dense."""
+
+    def init_fn(params, device=None):
+        state = _adam_init(params, device)
+        return ScaleByAdamState(*state), EmptyState()
+
+    def update_fn(grads, state, params=None):
+        adam_state, empty = state
+        count = adam_state.count + 1
+        c = count.to(torch.float32)
+        c1 = 1 - b1 ** c
+        c2 = 1 - b2 ** c
+        mu = {k: (1 - b1) * g + b1 * adam_state.mu[k]
+              for k, g in grads.items()}
+        nu = {k: (1 - b2) * g ** 2 + b2 * adam_state.nu[k]
+              for k, g in grads.items()}
+        updates = {k: -learning_rate * ((mu[k] / c1)
+                                        / (torch.sqrt(nu[k] / c2) + eps))
+                   for k in grads}
+        return updates, (ScaleByAdamState(count=count, mu=mu, nu=nu), empty)
+
+    return GradientTransformation(init_fn, update_fn)
 
 
 def lazy_adam(learning_rate: float = 1e-3, b1: float = 0.9,

@@ -17,8 +17,12 @@ Ported: `train_step`, `train_step_multi`, `train_step_multi_flat`,
 JAX package's checkpoint format; warm start from `init_model_dir`;
 `profile` through `torch.profiler`.
 
+With `sparse_tables` (JAX `trainer.py:58-61, 82-88`) every step of every
+entry point is the O(batch) sparse step of `training/sparse.py` instead:
+gather -> Adam -> scatter on the named tables, and `optimizer` (default
+optax-form `adam(lr)`) on the other parameters only.
+
 Not in this slice, each coming with the model that needs it:
-`sparse_tables` (the O(batch) sparse step of the DLRM slice),
 `evaluate_temporal`, the per-record regression eval, and
 `update_interval` / `update_fn`. Models here draw no randomness in their
 loss, so no per-step generator is passed to `model.loss`.
@@ -51,6 +55,7 @@ from openrec_tpu_torch.metrics import (AUC, NDCG, DeviceDictMean, DeviceMean,
                                        DictMean, Mean, Precision, Recall,
                                        ids_to_masks)
 from openrec_tpu_torch.training.optim import apply_updates, lazy_adam
+from openrec_tpu_torch.training.sparse import make_sparse_train_step
 
 FEEDS = ("auto", "per_step", "flat", "stacked")
 
@@ -74,19 +79,25 @@ class Trainer:
                  init_model_dir: Optional[str] = None,
                  max_to_keep: int = 10,
                  log_file: Optional[str] = None,
-                 device=None):
+                 sparse_tables=None, device=None):
         """
         model: a Recommender (`openrec_tpu_torch.models`) whose parameters
           lie on `device` (default CUDA; raises without it unless
           device='cpu').
         optimizer: a GradientTransformation of `training/optim.py`.
           Default lazy_adam(lr): rows-touched updates; pass
-          keras_adam(lr) for the reference's dense Adam trajectory.
+          keras_adam(lr) for the reference's dense Adam trajectory. With
+          sparse_tables: the dense parameters' optimizer only.
         seed: seeds the trainer's `torch.Generator` on `device`, which
           drives on-device sampling (`train_steps_device`).
         init_model_dir: warm-start checkpoint dir; its latest checkpoint's
           params are loaded optimistically (entries whose name and shape
           match), before the optimizer state is made.
+        sparse_tables: optional table specs (`training/sparse.py`, e.g.
+          `dlrm_fused_table_spec(model)`) switching every step to the
+          O(batch) gather -> Adam(lr) -> scatter update of those tables;
+          `optimizer` then applies to the other parameters only, and
+          defaults to optax-form `adam(lr)`.
         """
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
@@ -109,7 +120,13 @@ class Trainer:
                 model.load_params({k[len("params/"):]: v
                                    for k, v in flat.items()})
                 self._log(f"warm-started from {path}")
-        self.opt_state = self.tx.init(self.params)
+        self.sparse_tables = sparse_tables
+        if sparse_tables is not None:
+            init_fn, self._sparse_step = make_sparse_train_step(
+                model, sparse_tables, learning_rate=lr, dense_tx=optimizer)
+            self.opt_state = init_fn(self.params)
+        else:
+            self.opt_state = self.tx.init(self.params)
         self.global_step = 0
 
     @property
@@ -122,6 +139,9 @@ class Trainer:
     def _step_body(self, batch: dict):
         """One optimizer step on a batch of device tensors; returns the
         total loss and the aux dict, detached, on the device."""
+        if self.sparse_tables is not None:
+            self.opt_state, loss = self._sparse_step(self.opt_state, batch)
+            return loss, {"loss": loss}
         params = self.params
         names = list(params)
         total, aux = self.model.loss(batch)

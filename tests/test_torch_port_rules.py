@@ -102,6 +102,28 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_score_topk(embedding_init(3, 2), embedding_init(5, 2), None, 2)
     assert resolve_device("cpu") == torch.device("cpu")
+    # the DLRM slice: the model, its MLP, optax-form adam and the sparse
+    # step, whose state lives beside the model's tables
+    from openrec_tpu_torch import DLRM, MLP, adam
+    from openrec_tpu_torch.training.sparse import (dlrm_fused_table_spec,
+                                                   make_sparse_train_step)
+    kw = dict(m_spa=2, ln_emb=(3, 4), ln_bot=(2,), ln_top=(1,),
+              dim_dense=2, fused_tables=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DLRM(**kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLP(3, [2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adam().init({})
+    cpu_dlrm = DLRM(**kw, device="cpu")
+    assert adam().init(cpu_dlrm.params())[0].count.device.type == "cpu"
+    init, _ = make_sparse_train_step(cpu_dlrm,
+                                     dlrm_fused_table_spec(cpu_dlrm))
+    state = init(cpu_dlrm.params())
+    assert state["sparse"].count.device.type == "cpu"
+    assert state["dense"][0].count.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cpu_dlrm, sparse_tables=dlrm_fused_table_spec(cpu_dlrm))
 
 
 def test_cpu_tensors_count_no_kernel_launch():
