@@ -37,8 +37,9 @@ Phases, in order; any failure raises and exits non-zero:
      its plain version, a library yardstick (torch.matmul + torch.topk,
      which the port never calls) and its bound (bytes at 3.35 TB/s,
      operations at the peak for the input type), with its device time by
-     kernel under torch.profiler: K1/K2 at the Amazon
-     serving shape, K3 at the CiteULike retrieval shape of phase 5 and at
+     kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16)
+     and at the CiteULike shape (fp32), each at the bucket its method
+     picks there, K3 at the CiteULike retrieval shape of phase 5 and at
      the Amazon shape, each of K3's four launches (K1 bound pass, tau,
      filter, final) on its own too.
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
@@ -78,13 +79,33 @@ Phases, in order; any failure raises and exits non-zero:
      batch touched are bit-identical afterwards, and a bf16 forward is
      within 2e-2 of the fp32 one.
 
+  7. the rest of the tf2 zoo (PMF, WRMF, GMF, UCML) at phase 5's width,
+     data and optimizer (dim 50, batch 1000, lazy_adam lr 1e-3): 300
+     host-fed steps each through Trainer.train, 100 a call (PMF, WRMF, GMF
+     on Dataset.stratified_pointwise with pos_ratio 0.2, UCML on
+     Dataset.pairwise with margin 0.5; the C++ feeder in both), then 200
+     device-sampled WRMF steps (DevicePointwiseSampler). Per model and
+     feed: steps/s, examples/s, device busy ms per call and idle share
+     (torch.profiler, one call), val AUC and Recall@50 at step 0 and at
+     the end (both must rise), peak memory; UCML's touched rows must lie
+     in the unit ball (1 + 1e-4). 20 steps card against CPU from the same
+     weights (rtol 1e-4, atol 1e-6). Then each model's trained tables
+     answer 8 requests of 256 users, top-100, through the scorer's
+     'exact', 'pallas' and 'pallas2' with extractors u (GMF u * w; UCML
+     2u), v and b (UCML b - ||v||^2), and through K3: every score the fp32
+     score at its id, K3's ids those of torch.topk of model.score but for
+     near-ties; recall below target - 0.01 is printed as a finding. K1,
+     K2 and K3 count their launches over the phase.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
-{"training": ...} line, a {"dlrm": ...} line, a {"kernels": [...]} line
-(K1, K2, K3), and last
+{"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
+{"kernels": [...]} line (K1, K2, K3; `launches` from the serving path
+for K1/K2 and the training path for K3, `launches_zoo` from phase 7),
+and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. With --out FILE, the full record (every check, latency,
 profile and timing) is also written there as JSON.
@@ -118,6 +139,11 @@ TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def near(x, y):
+    """x equals y within rtol = atol = TOL (elementwise, tensors)."""
+    return (x - y).abs() <= TOL + TOL * y.abs()
 
 
 def make_params(rng, users, items, dim):
@@ -155,9 +181,6 @@ def compare_kernel(torch, bt, u, v, b, bucket, top2):
 
     def at(ids):
         return full.gather(1, ids.long())
-
-    def near(x, y):
-        return (x - y).abs() <= TOL + TOL * y.abs()
 
     vals_p, vals_k = plain[0::2], kern[0::2]
     err = 0.0
@@ -215,7 +238,9 @@ K1K2_CASES = [
     ("bf16 B=37", 37, 10_000, 64, "bfloat16", 8, ""),
     ("amazon K1 shape", BATCH, AMAZON["items"], 64, "bfloat16", 64, ""),
     ("amazon K2 shape", BATCH, AMAZON["items"], 64, "bfloat16", 256, ""),
-    ("citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", 16, ""),
+    # the buckets `pallas` (K1) and `pallas2` (K2) pick at CiteULike
+    ("citeulike K1 shape", BATCH, CITEULIKE["items"], 50, "float32", 2, ""),
+    ("citeulike K2 shape", BATCH, CITEULIKE["items"], 50, "float32", 16, ""),
 ]
 
 
@@ -327,10 +352,6 @@ def check_topk(torch, vals, ids, want_v, want_i, full, what):
         fail(f"{what}: an id lies outside the catalog")
     if (vals[:, 1:] > vals[:, :-1]).any():
         fail(f"{what}: values are not best first")
-
-    def near(x, y):
-        return (x - y).abs() <= TOL + TOL * y.abs()
-
     err = (vals - want_v).abs().max().item()
     if not near(vals, want_v).all():
         fail(f"{what}: values differ beyond rtol=atol={TOL}: max {err}")
@@ -1098,6 +1119,324 @@ def phase_dlrm(torch, port, seed, dev, flagship=FLAGSHIP, kaggle=KAGGLE,
     return out
 
 
+# ------------------------------------------------------------ phase 7
+
+ZOO_MODELS = ("PMF", "WRMF", "GMF", "UCML")
+ZOO = dict(steps=300, k=100, pos_ratio=0.2, margin=0.5, device_steps=200,
+           card_vs_cpu_steps=20, profiled_calls=1)
+
+
+def zoo_extractors(torch, name, model):
+    """(user, item, bias) extractors whose u.v + b ranks items as the
+    model's score does: u, v, b for PMF and WRMF; GMF's own `user_vecs`
+    (u * w); 2u, v and b - ||v||^2 for UCML, whose -||u - v||^2 + b
+    differs from that by -||u||^2, the same for every item of a user."""
+    from openrec_tpu_torch.modules.embedding import embedding_lookup
+
+    def item(p, i):
+        return embedding_lookup(p["item_embed"], i)
+
+    def bias(p, i):
+        b = embedding_lookup(p["item_bias"], i).reshape(-1)
+        if name == "UCML":
+            b = b - torch.sum(item(p, i) ** 2, dim=1)
+        return b
+
+    def user(p, i):
+        if name == "GMF":
+            return model.user_vecs(i)
+        u = embedding_lookup(p["user_embed"], i)
+        return 2.0 * u if name == "UCML" else u
+    return user, item, bias
+
+
+def zoo_serving(torch, port, name, model, dev, rng):
+    """8 requests of 256 users, top-100 from the trained tables: through
+    the cached scorer ('exact', 'pallas', 'pallas2') and through K3, with
+    the extractors of `zoo_extractors`. Every returned score must be the
+    fp32 score at its id and K3's ids those of torch.topk of model.score
+    but for near-ties, and K1 and K2 must agree with their plain version
+    on every request at the bucket their method picks; recall below its
+    floor is recorded, not raised (the bucket law promises it in
+    expectation only)."""
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    U, I = model.total_users, model.total_items
+    params = {k: v.detach() for k, v in model.params().items()}
+    user, item, bias = zoo_extractors(torch, name, model)
+    scorer = port.CachedDotProductScorer(model, U, I, user, item, bias,
+                                         device=dev)
+    requests = [torch.as_tensor(rng.integers(0, U, BATCH), device=dev)
+                for _ in range(REQUESTS)]
+    answers = {m: [_request(scorer, params, r, m) for r in requests]
+               for m in ("exact", "pallas", "pallas2")}
+    out = {"requests": REQUESTS, "recall_vs_exact": {},
+           "score_max_abs_err": 0.0}
+    for m, results in answers.items():
+        hits = 0
+        for r, (vals, ids), (_, ex_ids) in zip(requests, results,
+                                               answers["exact"]):
+            if tuple(vals.shape) != (BATCH, K) or not torch.isfinite(
+                    vals).all() or ids.min() < 0 or ids.max() >= I:
+                fail(f"zoo {name} {m}: bad output")
+            ref = scorer.serve(params, r).gather(1, ids.long())
+            out["score_max_abs_err"] = max(out["score_max_abs_err"],
+                                           (vals - ref).abs().max().item())
+            if not near(vals, ref).all():
+                fail(f"zoo {name} {m}: a returned score is not the fp32 "
+                     "score at its id")
+            ex_sorted = torch.sort(ex_ids, dim=1).values
+            found = torch.searchsorted(ex_sorted, ids.to(ex_sorted.dtype))
+            hits += int((ex_sorted.gather(1, found.clamp(max=K - 1))
+                         == ids).sum())
+        out["recall_vs_exact"][m] = hits / (REQUESTS * BATCH * K)
+    out["recall_below_floor"] = {
+        m: r for m, r in out["recall_vs_exact"].items()
+        if r < TARGETS.get(m, 1.0) - 0.01}
+
+    # K3 on the same tables, against torch.topk of the model's own score
+    with torch.no_grad():
+        table_u = user(params, torch.arange(U, device=dev))
+        table_v = item(params, torch.arange(I, device=dev)).contiguous()
+        table_b = bias(params, torch.arange(I, device=dev)).contiguous()
+    # K1 and K2 against their plain version at the serving path's own
+    # buckets; these launches are not the path's, so their counts go back
+    counted = (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches)
+    out["k1k2_vs_plain"] = {}
+    for kname, m, top2 in (("K1", "pallas", False), ("K2", "pallas2", True)):
+        bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
+                                  per_bucket=2 if top2 else 1)
+        res = [compare_kernel(torch, bt, table_u[r].contiguous(), table_v,
+                              table_b, bucket, top2) for r in requests]
+        out["k1k2_vs_plain"][kname] = {
+            "bucket": bucket, "max_abs_err": max(c[0] for c in res),
+            "id_mismatch_not_tie": sum(c[1] for c in res),
+            "id_mismatch_tie": sum(c[2] for c in res)}
+        if out["k1k2_vs_plain"][kname]["id_mismatch_not_tie"]:
+            fail(f"zoo {name} {kname}: id mismatches against its plain "
+                 f"version that are not near-ties "
+                 f"{out['k1k2_vs_plain'][kname]}")
+    bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = counted
+
+    k3 = [tk.fused_score_topk(table_u[r].contiguous(), table_v, table_b, K)
+          for r in requests]
+    torch.cuda.synchronize()
+    checks, bad_model, ties_model = [], 0, 0
+    for r, (vals, ids) in zip(requests, k3):
+        full = tk.dot_scores(table_u[r], table_v, table_b)
+        want_v, want_i = torch.topk(full, K, dim=1)
+        checks.append(check_topk(torch, vals, ids, want_v, want_i, full,
+                                 f"zoo {name} K3"))
+        with torch.no_grad():
+            ms = model.score({"user_id": r})
+        ref_v, ref_i = torch.topk(ms, K, dim=1)
+        diff = ids != ref_i.to(ids.dtype)
+        tie = diff & near(ms.gather(1, ids.long()), ref_v)
+        bad_model += int((diff & ~tie).sum())
+        ties_model += int(tie.sum())
+    out["k3"] = {"max_abs_err": max(c[0] for c in checks),
+                 "id_mismatch_not_tie": sum(c[1] for c in checks),
+                 "id_mismatch_tie": sum(c[2] for c in checks),
+                 "vs_model_score_not_tie": bad_model,
+                 "vs_model_score_tie": ties_model}
+    if out["k3"]["id_mismatch_not_tie"] or bad_model:
+        fail(f"zoo {name} K3: id mismatches that are not near-ties "
+             f"{out['k3']}")
+    out["calls"] = {"pallas": len(answers["pallas"]),
+                    "pallas2": len(answers["pallas2"]), "k3": len(k3)}
+    return out
+
+
+def zoo_card_vs_cpu(torch, port, name, kw, start, batches, dev):
+    """The same steps on the card and on the CPU from the same weights,
+    lazy_adam at phase 5's learning rate (UCML's censor included)."""
+    U, I = start["user_embed"].shape[0], start["item_embed"].shape[0]
+    D = start["user_embed"].shape[1]
+    models = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        models[where] = getattr(port, name)(U, I, D, D, device=d, **kw)
+        models[where].load_params({k: v.to(d) for k, v in start.items()})
+    losses = {w: port.Trainer(m, lr=TRAIN["lr"], device=m.user_embed.device)
+              .train_step_multi(batches).cpu() for w, m in models.items()}
+    worst = 0.0
+    for key, p in models["cpu"].params().items():
+        q = models["card"].params()[key].detach().cpu()
+        worst = max(worst, (q - p.detach()).abs().max().item())
+        if not torch.allclose(q, p.detach(), rtol=1e-4, atol=1e-6):
+            fail(f"zoo {name}: card and CPU disagree on '{key}' after "
+                 f"{len(batches)} steps: max {worst}")
+    if not torch.allclose(losses["card"], losses["cpu"], rtol=1e-4,
+                          atol=1e-6):
+        fail(f"zoo {name}: card and CPU losses disagree")
+    return {"steps": len(batches), "max_abs_param_diff": worst,
+            "max_abs_loss_diff":
+                (losses["card"] - losses["cpu"]).abs().max().item()}
+
+
+def zoo_model(torch, port, name, train_ds, val, seed, dev, log_dir, run):
+    """One model of phase 7: host-fed training through Trainer.train (and
+    for WRMF device-sampled training after it), card against CPU, the
+    touched rows' norms (UCML), serving. Returns the record."""
+    from openrec_tpu_torch.data import samplers
+    store = train_ds.store
+    U, I = store.total_users(), store.total_items()
+    D, B, k = TRAIN["dim"], TRAIN["batch"], run["k"]
+    kw = {"margin": run["margin"]} if name == "UCML" else {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = getattr(port, name)(U, I, D, D, device=dev, generator=gen, **kw)
+    init = {k_: v.detach().clone() for k_, v in model.params().items()}
+    log_file = log_dir / f"{name}.jsonl"
+    trainer = port.Trainer(model, lr=TRAIN["lr"], seed=seed, device=dev,
+                           log_file=str(log_file))
+    ev0 = trainer.evaluate(val, at=(50,))
+    out = {"config": {"users": U, "items": I, "dim": D, "batch": B,
+                      "lr": TRAIN["lr"], "optimizer": "lazy_adam", **kw},
+           "val_step0": {"AUC": float(ev0["AUC"]),
+                         "Recall@50": float(ev0["Recall"][0])}}
+    if name == "UCML":
+        feed = train_ds.pairwise(batch_size=B, num_parallel_calls=2)
+        host = samplers.PairwiseSampler(store, B, seed=seed + 7)
+    else:
+        feed = train_ds.stratified_pointwise(
+            batch_size=B, pos_ratio=run["pos_ratio"], num_parallel_calls=2)
+        host = samplers.StratifiedPointwiseSampler(
+            store, B, pos_ratio=run["pos_ratio"], seed=seed + 7)
+    if not (feed._sampler.use_native and host.use_native):
+        fail(f"zoo {name}: the host feed did not take the native sampler")
+    batches = [host.sample() for _ in range(k)]
+
+    def feed_run(what, batches_or_sampler, steps, call, start):
+        """`start`: the val metrics the leg must rise above."""
+        done = len(log_file.read_text().splitlines()) \
+            if log_file.exists() else 0
+        res = trainer.train(steps, batches_or_sampler,
+                            eval_samplers={"val": val}, eval_interval=steps,
+                            steps_per_call=k, at=(50,), verbose=False)
+        rec = json.loads(log_file.read_text().splitlines()[done])
+        its = rec["iters_per_s"]
+        wall_ms = k / its * 1e3
+        prof = profile_device(torch, call, run["profiled_calls"], wall_ms)
+        r = {"steps": steps, "steps_per_call": k, "steps_per_s": its,
+             "examples_per_s": its * B, "mean_loss": rec["loss"],
+             "val": {"AUC": float(res["val"]["AUC"]),
+                     "Recall@50": float(res["val"]["Recall"][0])},
+             "device_busy_ms_per_call": prof["device_busy_ms_per_call"],
+             "device_ops_per_call": prof["device_ops_per_call"],
+             "idle_share": prof["idle_share"],
+             "top_device_ms_per_call": prof["top_device_ms_per_call"]}
+        r["val_start"] = start
+        for metric in ("AUC", "Recall@50"):
+            if not r["val"][metric] > start[metric]:
+                fail(f"zoo {name} {what}: val {metric} did not rise: "
+                     f"{start[metric]} -> {r['val'][metric]}")
+        print(f"zoo {name} {what}: {steps} steps, {its:.1f} steps/s, "
+              f"{its * B:.0f} examples/s, device busy "
+              f"{r['device_busy_ms_per_call']:.3f} ms per {k}-step call, "
+              f"idle {r['idle_share']:.3f}; val AUC "
+              f"{start['AUC']:.4f} -> {r['val']['AUC']:.4f}, "
+              f"Recall@50 {start['Recall@50']:.4f} -> "
+              f"{r['val']['Recall@50']:.4f}", flush=True)
+        return r
+
+    seconds = {}
+    t = time.perf_counter()
+    out["host_fed"] = feed_run(
+        "host-fed (native sampler)", feed, run["steps"],
+        lambda: trainer.train_step_multi(batches).cpu(), out["val_step0"])
+    seconds["host_fed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    start = {k_: v.detach().clone() for k_, v in model.params().items()}
+    out["card_vs_cpu"] = zoo_card_vs_cpu(
+        torch, port, name, kw, start, batches[:run["card_vs_cpu_steps"]],
+        dev)
+    seconds["card_vs_cpu"] = time.perf_counter() - t
+    if name == "WRMF":
+        t = time.perf_counter()
+        sampler = port.DevicePointwiseSampler(
+            store, B, pos_ratio=run["pos_ratio"], device=dev)
+        # the leg starts from the host-fed weights and the profiled call
+        # after them, and must rise above what they score
+        ev = trainer.evaluate(val, at=(50,))
+        out["device_sampled"] = feed_run(
+            "device-sampled", sampler, run["device_steps"],
+            lambda: trainer.train_steps_device(sampler, k).cpu(),
+            {"AUC": float(ev["AUC"]), "Recall@50": float(ev["Recall"][0])})
+        out["device_sampled"]["membership"] = sampler.membership
+        seconds["device_sampled"] = time.perf_counter() - t
+    if name == "UCML":
+        norms = {}
+        for table in ("user_embed", "item_embed"):
+            t = model.params()[table].detach()
+            touched = (t != init[table]).any(dim=1)
+            norms[table] = {
+                "touched_rows": int(touched.sum()),
+                "max_touched_norm": torch.linalg.vector_norm(
+                    t[touched], dim=1).max().item()}
+        out["touched_norms"] = norms
+        worst = max(v["max_touched_norm"] for v in norms.values())
+        if worst > 1.0 + 1e-4 or not all(v["touched_rows"]
+                                         for v in norms.values()):
+            fail(f"zoo UCML: touched rows outside the unit ball {norms}")
+    out["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    t = time.perf_counter()
+    out["serving"] = zoo_serving(torch, port, name, model, dev,
+                                 np.random.default_rng(seed + 5))
+    seconds["serving"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    c, sv = out["card_vs_cpu"], out["serving"]
+    print(f"zoo {name}: card-vs-cpu {c['steps']} steps, params max |diff| "
+          f"{c['max_abs_param_diff']:.3g}; peak "
+          f"{out['max_memory_allocated_gb']:.3f} GB"
+          + (f"; touched row norms max "
+             f"{max(v['max_touched_norm'] for v in norms.values()):.6f}"
+             if name == "UCML" else "")
+          + "; serving recall " + json.dumps(sv["recall_vs_exact"])
+          + f", scores max |err| {sv['score_max_abs_err']:.3g}, K1/K2 vs "
+          + "plain " + json.dumps(sv["k1k2_vs_plain"]) + ", K3 "
+          + json.dumps(sv["k3"]) + "; seconds "
+          + json.dumps({k_: round(v, 2) for k_, v in seconds.items()}),
+          flush=True)
+    for m, r in sv["recall_below_floor"].items():
+        print(f"zoo {name} finding: {m} recall {r:.6f} is below its floor "
+              f"{TARGETS[m] - 0.01:.3f} on trained tables", flush=True)
+    return out
+
+
+def phase_zoo(torch, port, seed, dev, run=ZOO):
+    """Phase 7: PMF, WRMF, GMF and UCML at CiteULike width on phase 5's
+    data, then served through K1/K2/K3. The kernels' counters are set to
+    0 here and read at the end."""
+    from openrec_tpu_torch.data import Dataset, loaders
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
+                "K3": tk.fused_score_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    raw = citeulike_data(loaders, seed)
+    U, I = raw["total_users"], raw["total_items"]
+    train_ds = Dataset(raw["train_data"], U, I, seed=seed)
+    val = Dataset(raw["val_data"], U, I, seed=seed).evaluation(
+        BATCH, excl_datasets=[train_ds], device_masks=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        for name in ZOO_MODELS:
+            out[name] = zoo_model(torch, port, name, train_ds, val, seed,
+                                  dev, Path(log_dir), run)
+            torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"K1": sum(o["serving"]["calls"]["pallas"] for o in out.values()),
+            "K2": sum(o["serving"]["calls"]["pallas2"]
+                      for o in out.values()),
+            "K3": sum(o["serving"]["calls"]["k3"] for o in out.values())}
+    out["launches"] = launches
+    if launches != want:
+        fail(f"zoo: kernel launches {launches}, the path made {want}")
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -1123,38 +1462,69 @@ def time_ms(torch, fn, runs=30, warmup=3):
     return float(np.median(out))
 
 
-def phase_time(torch, bt, gen, dev, errs, launches):
-    B, I, D = BATCH, AMAZON["items"], AMAZON["dim"]
-    u = (torch.rand(B, D, generator=gen, device=dev) * 0.1 - 0.05).to(
-        torch.bfloat16)
-    v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05).to(
-        torch.bfloat16)
-    b = torch.randn(I, generator=gen, device=dev) * 0.01
+def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
+    """K1 (top2 False) or K2 at one shape: CUDA-event median ms, device ms
+    of the kernel (and its split merge) under the profiler, the plain
+    version's and the library yardstick's ms, and the bound."""
+    func = bt.bucket_max2_scores if top2 else bt.bucket_max_scores
+    (B, D), I = u.shape, v.shape[0]
+    dtype = str(u.dtype).split(".")[-1]
+    bucket, _, L = bt.bucket_geometry(I, D, v.element_size(), bucket)
+    ms = time_ms(torch, lambda: func(u, v, b, bucket=bucket))
+    profile = profile_device(torch, lambda: func(u, v, b, bucket=bucket),
+                             10, ms)
+    device_ms = sum(t for name, t in
+                    profile["top_device_ms_per_call"].items()
+                    if "bucket_max" in name or "merge_splits" in name)
+    plain_ms = time_ms(torch, lambda: bt.bucket_max_plain(
+        u, v, b, bucket, top2=top2), runs=20)
+    clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+    library_ms = time_ms(torch, lambda: torch.topk(
+        torch.matmul(u, v.T), K, dim=1))
+    nbytes = (B * D + I * D) * u.element_size() + I * 4 \
+        + B * L * (16 if top2 else 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * B * I * D / PEAK_OPS[dtype] * 1e3
+    shape = {"B": B, "I": I, "D": D, "dtype": dtype, "bucket": bucket,
+             "L": L, "k": K}
+    if dtype == "bfloat16":
+        shape.update(bt.mma_plan(B, I, D, bucket, top2, torch.cuda
+                                 .get_device_properties(u.device)
+                                 .multi_processor_count)._asdict())
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            # SM clock, power draw and temperature right after the timing
+            "card_after_timing": clocks, "profile": profile, "shape": shape}
+
+
+def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
+    """K1's and K2's entries of the kernels line: their numbers at the
+    Amazon serving shape (bf16, the tensor-core route), with the
+    CiteULike shape (fp32, the CUDA-core route) beside them, each at the
+    bucket `bucket_score_topk` picks there for its method's target. The
+    CiteULike entry's `max_abs_err` is phase 2's at that shape and
+    bucket."""
+    def inputs(I, D, dtype):
+        u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
+        v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05)
+        b = torch.randn(I, generator=gen, device=dev) * 0.01
+        return u.to(dtype), v.to(dtype), b
+
+    amazon = inputs(AMAZON["items"], AMAZON["dim"], torch.bfloat16)
+    citeulike = inputs(CITEULIKE["items"], CITEULIKE["dim"], torch.float32)
     entries = []
-    for kname, func, top2, bucket, line, fn_name in (
-            ("K1", bt.bucket_max_scores, False, 64, 68,
-             "_bucket_max_kernel"),
-            ("K2", bt.bucket_max2_scores, True, 256, 143,
-             "_bucket_max2_kernel")):
-        bucket, _, L = bt.bucket_geometry(I, D, 2, bucket)
-        ms = time_ms(torch, lambda: func(u, v, b, bucket=bucket))
-        # device time by kernel: the kernel itself and, with a member split,
-        # its merge pass
-        profile = profile_device(torch, lambda: func(u, v, b, bucket=bucket),
-                                 10, ms)
-        device_ms = sum(t for name, t in
-                        profile["top_device_ms_per_call"].items()
-                        if "bucket_max" in name or "merge_splits" in name)
-        plain_ms = time_ms(torch, lambda: bt.bucket_max_plain(
-            u, v, b, bucket, top2=top2), runs=20)
-        clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
-        library_ms = time_ms(torch, lambda: torch.topk(
-            torch.matmul(u, v.T), K, dim=1))
-        nbytes = (B * D + I * D) * 2 + I * 4 + B * L * (16 if top2 else 8)
-        ops = 2.0 * B * I * D
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
-        entries.append({
+    for kname, top2, line, fn_name in (
+            ("K1", False, 68, "_bucket_max_kernel"),
+            ("K2", True, 143, "_bucket_max2_kernel")):
+        method = "pallas2" if top2 else "pallas"
+
+        def bucket_at(cfg):
+            return bt.choose_bucket(cfg["items"], K,
+                                    recall_target=TARGETS[method],
+                                    per_bucket=2 if top2 else 1)
+        entry = {
             "name": f"{kname} bucket_max_mma<top{2 if top2 else 1}>",
             "route": "cuda",
             "source": "openrec_tpu_torch/csrc/bucket_max.cu",
@@ -1162,24 +1532,24 @@ def phase_time(torch, bt, gen, dev, errs, launches):
             "replaces_function": fn_name,
             "variant": "mma-bf16",
             "launches": launches[kname],
-            "max_abs_err": errs[kname],
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            # SM clock, power draw and temperature right after the timing
-            "card_after_timing": clocks,
-            "profile": profile,
-            "shape": {"B": B, "I": I, "D": D, "dtype": "bfloat16",
-                      "bucket": bucket, "L": L, "k": K,
-                      **bt.mma_plan(B, I, D, bucket, top2, torch.cuda
-                                    .get_device_properties(dev)
-                                    .multi_processor_count)._asdict()},
-        })
-        print(f"{kname} amazon ({entries[-1]['variant']}): {ms:.4f} ms by "
-              f"events, {device_ms:.4f} ms device (library "
-              f"{library_ms:.4f}, plain {plain_ms:.3f}, bound "
-              f"{entries[-1]['bound_ms']:.4f})", flush=True)
+            "max_abs_err": errs[kname]}
+        entry.update(time_bucket_kernel(torch, bt, *amazon, top2,
+                                        bucket_at(AMAZON)))
+        entry["citeulike"] = time_bucket_kernel(torch, bt, *citeulike, top2,
+                                                bucket_at(CITEULIKE))
+        entry["citeulike"]["variant"] = "fma-f32"
+        entry["citeulike"]["max_abs_err"] = next(
+            c["max_abs_err"] for c in compare_report
+            if c["kernel"] == kname and c["dtype"] == "float32"
+            and c["I"] == CITEULIKE["items"]
+            and c["bucket"] == entry["citeulike"]["shape"]["bucket"])
+        entries.append(entry)
+        for name, t in (("amazon", entry), ("citeulike", entry["citeulike"])):
+            print(f"{kname} {name} ({t['variant']}, bucket "
+                  f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
+                  f"{t['device_ms']:.4f} ms device (library "
+                  f"{t['library_ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
+                  f"{t['bound_ms']:.4f})", flush=True)
     return entries
 
 
@@ -1323,7 +1693,7 @@ def main(argv=None):
 
     # phase 4
     kernels = phase_time(torch, bt, gen, dev, errs,
-                         serve["amazon"]["launches"])
+                         serve["amazon"]["launches"], compare_report)
     kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
                                  serve["amazon"]["launches"]["K3"]))
     torch.cuda.empty_cache()
@@ -1337,8 +1707,19 @@ def main(argv=None):
     t6 = time.perf_counter()
     dlrm = phase_dlrm(torch, port, args.seed, dev)
     dlrm["phase_s"] = time.perf_counter() - t6
+    print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 7
+    t7 = time.perf_counter()
+    zoo = phase_zoo(torch, port, args.seed, dev)
+    zoo["phase_s"] = time.perf_counter() - t7
+    for entry in kernels:
+        entry["launches_zoo"] = zoo["launches"][entry["name"][:2]]
+        if "citeulike" in entry:
+            entry["citeulike"]["launches"] = entry["launches_zoo"]
     total_s = time.perf_counter() - t_start
-    print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s; chip_smoke: "
+    print(f"phase 7 (zoo): {zoo['phase_s']:.1f} s; chip_smoke: "
           f"{total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
@@ -1347,7 +1728,7 @@ def main(argv=None):
             {"card": smi, "build_s": build_s, "total_s": total_s,
              "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
-             "dlrm": dlrm},
+             "dlrm": dlrm, "zoo": zoo},
             indent=1))
     print(json.dumps({"requests": {name: {
         "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
@@ -1374,6 +1755,23 @@ def main(argv=None):
            "val_auc": k["sparse"]["val_auc"],
            "untouched_rows": k["sparse"]["untouched_rows"],
            "bf16_forward_max_abs_diff": k["bf16_forward_max_abs_diff"]}}}))
+    print(json.dumps({"zoo": {"launches": zoo["launches"]} | {
+        name: {"host_fed": {m: zoo[name]["host_fed"][m] for m in (
+            "steps_per_s", "examples_per_s", "device_busy_ms_per_call",
+            "idle_share", "val")},
+            "val_step0": zoo[name]["val_step0"],
+            "card_vs_cpu": zoo[name]["card_vs_cpu"]["max_abs_param_diff"],
+            "max_memory_allocated_gb": zoo[name]["max_memory_allocated_gb"],
+            "recall_vs_exact": zoo[name]["serving"]["recall_vs_exact"],
+            "k1k2_vs_plain": zoo[name]["serving"]["k1k2_vs_plain"],
+            "k3": zoo[name]["serving"]["k3"]}
+        | ({"device_sampled": {m: zoo[name]["device_sampled"][m] for m in (
+            "steps_per_s", "examples_per_s", "idle_share", "val_start",
+            "val")}}
+           if "device_sampled" in zoo[name] else {})
+        | ({"touched_norms": zoo[name]["touched_norms"]}
+           if "touched_norms" in zoo[name] else {})
+        for name in ZOO_MODELS}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

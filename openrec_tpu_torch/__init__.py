@@ -27,6 +27,15 @@ And the DLRM-Criteo flagship: MLP, the dot interaction, BCE / MSE,
 DLRM (separate or fused tables, bf16 compute), the Criteo loaders,
 optax-form `adam`, and the O(batch) sparse Adam step with flat dedup
 (`training.sparse`), also behind `Trainer(sparse_tables=...)`.
+
+And the rest of the tf2 zoo with PMF: PMF, WRMF, GMF and UCML (= CML,
+with its unit-ball censoring as `post_step`), their losses
+(`pairwise_eudist_hinge_loss`, `pointwise_mse_loss`, `bce_logits_loss`),
+the pointwise samplers (`StratifiedPointwiseSampler` with its C++ branch,
+`PerPosStratifiedPointwiseSampler`, `RandomPointwiseSampler`, the
+`Dataset` methods) and the on-device `DevicePointwiseSampler`. Their
+tables serve through the same scorer and kernels as BPR's
+(`examples/`: the ported example scripts).
 """
 
 __version__ = "0.1.0"
@@ -35,7 +44,9 @@ from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.convert import (
     opt_state_from_jax, opt_state_to_numpy, params_from_jax, params_to_numpy,
     sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
-from openrec_tpu_torch.models import BPR, DLRM, Recommender, criteo_dlrm
+from openrec_tpu_torch.models import (BPR, CML, DLRM, GMF, PMF, UCML, WRMF,
+                                      FactorRecommender, Recommender,
+                                      criteo_dlrm)
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
@@ -47,8 +58,10 @@ from openrec_tpu_torch.modules import (
     MLP, censor_max_norm, censor_norm, embedding_init, embedding_lookup,
     losses, second_order_interaction)
 from openrec_tpu_torch.data import (
-    Dataset, DevicePairwiseSampler, EvaluationSampler, InteractionStore,
-    PairwiseSampler)
+    Dataset, DevicePairwiseSampler, DevicePointwiseSampler,
+    EvaluationSampler, InteractionStore, PairwiseSampler,
+    PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
+    StratifiedPointwiseSampler)
 from openrec_tpu_torch.training import (Trainer, adam, keras_adam,
                                         lazy_adagrad, lazy_adam)
 from openrec_tpu_torch.training.sparse import (

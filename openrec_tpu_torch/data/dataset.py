@@ -1,15 +1,20 @@
 """User-facing Dataset facade.
 
 Counterpart of `openrec_tpu/data/dataset.py`: `Dataset.__init__` builds an
-`InteractionStore`; `pairwise` returns a `Prefetcher` over a seeded
-`PairwiseSampler` and `evaluation` an `EvaluationSampler`. The other
-strategies of the JAX package come with the models that use them.
+`InteractionStore`; `pairwise`, `stratified_pointwise`,
+`per_pos_stratified_pointwise` and `random_pointwise` each return a
+`Prefetcher` over a sampler seeded with the dataset's seed (each worker
+folds its id into it), and `evaluation` an `EvaluationSampler`. The
+multi-negative, explicit and temporal strategies of the JAX package come
+with the models that use them.
 """
 
 from __future__ import annotations
 
 from openrec_tpu_torch.data.pipeline import Prefetcher
-from openrec_tpu_torch.data.samplers import EvaluationSampler, PairwiseSampler
+from openrec_tpu_torch.data.samplers import (
+    EvaluationSampler, PairwiseSampler, PerPosStratifiedPointwiseSampler,
+    RandomPointwiseSampler, StratifiedPointwiseSampler)
 from openrec_tpu_torch.data.store import InteractionStore
 
 
@@ -34,6 +39,28 @@ class Dataset:
                             chronological=chronological)
         if chronological:
             num_parallel_calls = 1
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
+    def stratified_pointwise(self, batch_size, pos_ratio=0.5,
+                             num_parallel_calls=1, take=None,
+                             chronological=False):
+        """Infinite (user, item, label) batches, pos_ratio of them
+        positives (chronological: finite, forces 1 worker)."""
+        s = StratifiedPointwiseSampler(self.store, batch_size, pos_ratio,
+                                       seed=self._seed,
+                                       chronological=chronological)
+        if chronological:
+            num_parallel_calls = 1
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
+    def per_pos_stratified_pointwise(self, batch_size, pos_ratio=0.5,
+                                     num_parallel_calls=1, take=None):
+        s = PerPosStratifiedPointwiseSampler(self.store, batch_size,
+                                             pos_ratio, seed=self._seed)
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
+    def random_pointwise(self, batch_size, num_parallel_calls=1, take=None):
+        s = RandomPointwiseSampler(self.store, batch_size, seed=self._seed)
         return Prefetcher(s, num_workers=num_parallel_calls, take=take)
 
     def evaluation(self, batch_size, excl_datasets=(), device_masks=False):

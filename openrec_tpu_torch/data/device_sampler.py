@@ -1,15 +1,17 @@
 """On-device batch sampling.
 
-Counterpart of `openrec_tpu/data/device_sampler.py:30-158`: the
+Counterpart of `openrec_tpu/data/device_sampler.py:30-209`: the
 interaction index lives in device memory (a bit array, or the sorted
 composite keys, plus the flat record arrays) and batches are drawn on
 the card, so the host sends nothing per step:
 
   - positive picks: uniform records (with replacement);
-  - negatives: uniform over the catalog with `REJECT_ROUNDS` fixed
-    resampling rounds against the membership index. The residual chance
-    that a negative is a positive is density^(rounds+1): below 1e-13 at
-    CiteULike's density (~2e-3) and 4 rounds.
+  - negatives: uniform over the catalog (`DevicePairwiseSampler`: items
+    for the record's user; `DevicePointwiseSampler`: (user, item) pairs)
+    with `REJECT_ROUNDS` fixed resampling rounds against the membership
+    index. The residual chance that a negative is a positive is
+    density^(rounds+1): below 1e-13 at CiteULike's density (~2e-3) and 4
+    rounds.
 
 Random numbers come from a `torch.Generator` on the sampler's device
 (Philox on the card), not JAX's threefry: the streams differ from the
@@ -77,15 +79,10 @@ class _MembershipIndex:
         return self._pos_keys[idx] == keys
 
 
-class DevicePairwiseSampler:
-    """On-device (user, pos, neg) triplet sampler over a static index.
-
-    `sample(generator)` draws one [B] batch; `sample_stacked(generator, k)`
-    draws k batches as [k, B] in three batched draws (records, all the
-    rounds' negatives), the form `Trainer.train_steps_device` feeds to
-    its K-step loop. `generator` is a `torch.Generator` on the sampler's
-    device. Batches are int32 tensors on that device.
-    """
+class _DeviceSampler:
+    """The membership index and the record arrays on the device, shared
+    by the samplers below. `generator` arguments are `torch.Generator`s on
+    the sampler's device; batches are tensors on that device."""
 
     def __init__(self, store, batch_size: int, membership: str = "auto",
                  bitmap_limit_bytes: int = 64 * 1024 * 1024,
@@ -93,6 +90,7 @@ class DevicePairwiseSampler:
         self.device = resolve_device(device)
         self.reject_rounds = int(reject_rounds)
         self.batch_size = int(batch_size)
+        self.total_users = store.total_users()
         self.total_items = store.total_items()
         self._index = _MembershipIndex(store, membership,
                                        bitmap_limit_bytes, self.device)
@@ -109,6 +107,16 @@ class DevicePairwiseSampler:
     def _randint(self, high, shape, generator):
         return torch.randint(0, high, shape, generator=generator,
                              device=self.device, dtype=torch.int32)
+
+
+class DevicePairwiseSampler(_DeviceSampler):
+    """On-device (user, pos, neg) triplet sampler over a static index.
+
+    `sample(generator)` draws one [B] batch; `sample_stacked(generator, k)`
+    draws k batches as [k, B] in three batched draws (records, all the
+    rounds' negatives), the form `Trainer.train_steps_device` feeds to
+    its K-step loop. Batches are int32.
+    """
 
     def _draw(self, shape, generator):
         idx = self._randint(self.num_records, shape, generator)
@@ -130,3 +138,39 @@ class DevicePairwiseSampler:
         """k batches at once: dict of [k, B] tensors; same per-batch
         semantics as k `sample` calls (another stream)."""
         return self._draw((int(k), self.batch_size), generator)
+
+
+class DevicePointwiseSampler(_DeviceSampler):
+    """On-device stratified pointwise batches: n_pos = int(B * pos_ratio)
+    uniform records (label 1), then B - n_pos uniform (user, item) pairs
+    (label 0), each resampled, user and item both, in every one of the
+    fixed rejection rounds where it is a positive. `sample(generator)`
+    draws in the order records [n_pos], users [rounds + 1, B - n_pos],
+    items [rounds + 1, B - n_pos]. Like the JAX package's sampler it has
+    no `sample_stacked`: `Trainer.train_steps_device` samples each step's
+    batch inside its K-step loop."""
+
+    def __init__(self, store, batch_size: int, pos_ratio: float = 0.5,
+                 membership: str = "auto",
+                 bitmap_limit_bytes: int = 64 * 1024 * 1024,
+                 reject_rounds: int = REJECT_ROUNDS, device=None):
+        super().__init__(store, batch_size, membership, bitmap_limit_bytes,
+                         reject_rounds, device)
+        self.n_pos = int(batch_size * pos_ratio)
+
+    def sample(self, generator):
+        """One batch: user_id, item_id (int32) and label (float32), [B]."""
+        B, P, R = self.batch_size, self.n_pos, self.reject_rounds
+        idx = self._randint(self.num_records, (P,), generator)
+        users = self._randint(self.total_users, (R + 1, B - P), generator)
+        items = self._randint(self.total_items, (R + 1, B - P), generator)
+        nu, ni = users[0], items[0]
+        for round_i in range(1, R + 1):
+            bad = self.is_positive(nu, ni)
+            nu = torch.where(bad, users[round_i], nu)
+            ni = torch.where(bad, items[round_i], ni)
+        labels = torch.zeros(B, device=self.device)
+        labels[:P] = 1.0
+        return {"user_id": torch.cat([self._rec_users[idx], nu]),
+                "item_id": torch.cat([self._rec_items[idx], ni]),
+                "label": labels}

@@ -1,15 +1,17 @@
 """Seeded, vectorized host batch samplers.
 
-Counterpart of `openrec_tpu/data/samplers.py:34-223, 458-591`: the base
+Counterpart of `openrec_tpu/data/samplers.py:34-341, 458-591`: the base
 `BatchSampler` with its per-sampler epoch stream, `PairwiseSampler`
-(user, positive, uniform negative) and the full-catalog
+(user, positive, uniform negative), the pointwise samplers
+(`StratifiedPointwiseSampler`, `PerPosStratifiedPointwiseSampler`,
+`RandomPointwiseSampler`: user, item, 0/1 label) and the full-catalog
 `EvaluationSampler` (mask batches, or -1-padded id lists with
 `device_masks=True`). The same seed gives bit-identical batches to the
-JAX package on both of `PairwiseSampler`'s paths: the numpy path
-(`use_native=False`) and the C++ feeder (`openrec_tpu_torch/native/`, the
-default whenever it builds, as in the JAX package). The other sampling
-strategies, `StratifiedPointwiseSampler`'s native path among them, come
-with the models that use them.
+JAX package on every path, the numpy paths (`use_native=False`) and the
+C++ feeder (`openrec_tpu_torch/native/`, the default of `PairwiseSampler`
+and `StratifiedPointwiseSampler` whenever it builds, as in the JAX
+package). The multi-negative, explicit, temporal and feature-joined
+samplers come with the models that use them.
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -92,6 +94,23 @@ class BatchSampler:
                 return
             yield batch
 
+    def _init_native(self, use_native):
+        """use_native None takes the C++ feeder when the library is
+        available (`native.available()`) and the store has no pre-sampled
+        negatives; True asks for the feeder and raises when it cannot be
+        built; False takes numpy. The feeder reads the store's records as
+        int32 arrays and a hash table of its positive keys."""
+        if use_native is None:
+            use_native = (native.available()
+                          and not self.store.contain_negatives())
+        self.use_native = bool(use_native)
+        if self.use_native:
+            self._rec_users = np.ascontiguousarray(
+                self.store._pos_users, dtype=np.int32)
+            self._rec_items = np.ascontiguousarray(
+                self.store._pos_items, dtype=np.int32)
+            self._hash_table = native.build_hash_table(self.store._pos_keys)
+
     def with_seed(self, seed):
         """Fresh sampler with a different seed (used per prefetch worker)."""
         clone = type(self).__new__(type(self))
@@ -107,10 +126,8 @@ class BatchSampler:
 class PairwiseSampler(BatchSampler):
     """(user, positive, uniform-negative) triplets.
 
-    use_native None (the default) takes the C++ feeder when the library is
-    available (`native.available()`) and the store has no pre-sampled
-    negatives, else vectorized numpy; True asks for the feeder and raises
-    when it cannot be built; False takes numpy.
+    use_native: see `BatchSampler._init_native` (None, the default, takes
+    the C++ feeder wherever it builds).
 
     The native non-chronological path applies the epoch permutation to a
     private copy of the record arrays (one C++ Fisher-Yates per epoch,
@@ -125,16 +142,8 @@ class PairwiseSampler(BatchSampler):
                  chronological=False):
         super().__init__(store, batch_size, seed,
                          chronological=chronological)
-        if use_native is None:
-            use_native = (native.available()
-                          and not store.contain_negatives())
-        self.use_native = bool(use_native)
+        self._init_native(use_native)
         if self.use_native:
-            self._rec_users = np.ascontiguousarray(
-                store._pos_users, dtype=np.int32)
-            self._rec_items = np.ascontiguousarray(
-                store._pos_items, dtype=np.int32)
-            self._hash_table = native.build_hash_table(store._pos_keys)
             self._seq_pos = None      # shuffled at the first sample
 
     def _reshuffle(self):
@@ -201,6 +210,100 @@ class PairwiseSampler(BatchSampler):
                 clone.store._pos_items, dtype=np.int32)
             clone._seq_pos = None     # fresh private copy + shuffle
         return clone
+
+
+class StratifiedPointwiseSampler(BatchSampler):
+    """int(batch_size * pos_ratio) positives from the record stream, then
+    uniform (user, item) negatives rejected against the positives; labels
+    1 then 0. use_native as `PairwiseSampler`'s: the C++ feeder builds the
+    whole batch in one pass (`native.stratified_pointwise_batch_hash`,
+    seeded from the sampler's rng AFTER the batch's record indices are
+    drawn), numpy resamples the negatives that hit a positive until none
+    does."""
+
+    def __init__(self, store, batch_size, pos_ratio=0.5, seed=0,
+                 use_native=None, chronological=False):
+        super().__init__(store, batch_size, seed,
+                         chronological=chronological)
+        self.pos_ratio = float(pos_ratio)
+        self._init_native(use_native)
+
+    def sample(self):
+        n_pos = int(self.batch_size * self.pos_ratio)
+        n_neg = self.batch_size - n_pos
+        if self.use_native:
+            idx = self._next_record_indices(n_pos)
+            seed = int(self.rng.integers(0, 2 ** 63))
+            u, i, l = native.stratified_pointwise_batch_hash(
+                self._hash_table, self._rec_users, self._rec_items, idx,
+                n_neg, self.store.total_users(), self.store.total_items(),
+                seed)
+            return {"user_id": u, "item_id": i, "label": l}
+        rec = self._next_records(n_pos)
+        users = np.empty(self.batch_size, dtype=np.int32)
+        items = np.empty(self.batch_size, dtype=np.int32)
+        labels = np.zeros(self.batch_size, dtype=np.float32)
+        users[:n_pos] = rec["user_id"]
+        items[:n_pos] = rec["item_id"]
+        labels[:n_pos] = 1.0
+        nu = self.rng.integers(0, self.store.total_users(), size=n_neg)
+        ni = self.rng.integers(0, self.store.total_items(), size=n_neg)
+        bad = self.store.is_positive(nu, ni)
+        while bad.any():
+            k = int(bad.sum())
+            nu[bad] = self.rng.integers(0, self.store.total_users(), size=k)
+            ni[bad] = self.rng.integers(0, self.store.total_items(), size=k)
+            bad = self.store.is_positive(nu, ni)
+        users[n_pos:] = nu
+        items[n_pos:] = ni
+        return {"user_id": users, "item_id": items, "label": labels}
+
+
+class PerPosStratifiedPointwiseSampler(BatchSampler):
+    """Each positive followed by int((1 - r)/r) uniform negatives for the
+    same user, cut to batch_size. A negative is only kept apart from its
+    own positive, not from the user's other positives (the reference's
+    rule, tf2 dataset.py:36-58)."""
+
+    def __init__(self, store, batch_size, pos_ratio=0.5, seed=0):
+        super().__init__(store, batch_size, seed)
+        self.pos_ratio = float(pos_ratio)
+        self.k_neg = int((1 - self.pos_ratio) / self.pos_ratio)
+
+    def sample(self):
+        group = 1 + self.k_neg
+        n_groups = -(-self.batch_size // group)
+        rec = self._next_records(n_groups)
+        gu = np.asarray(rec["user_id"], dtype=np.int64)
+        gp = np.asarray(rec["item_id"], dtype=np.int64)
+        neg = self.rng.integers(0, self.store.total_items(),
+                                size=(n_groups, self.k_neg))
+        clash = neg == gp[:, None]
+        while clash.any():
+            neg[clash] = self.rng.integers(0, self.store.total_items(),
+                                           size=int(clash.sum()))
+            clash = neg == gp[:, None]
+        users = np.repeat(gu, group)
+        items = np.concatenate([gp[:, None], neg], axis=1).reshape(-1)
+        labels = np.zeros(n_groups * group, dtype=np.float32)
+        labels[::group] = 1.0
+        sl = slice(0, self.batch_size)
+        return {"user_id": users[sl].astype(np.int32),
+                "item_id": items[sl].astype(np.int32),
+                "label": labels[sl]}
+
+
+class RandomPointwiseSampler(BatchSampler):
+    """Uniform (user, item) pairs; label = observed membership."""
+
+    def sample(self):
+        users = self.rng.integers(0, self.store.total_users(),
+                                  size=self.batch_size)
+        items = self.rng.integers(0, self.store.total_items(),
+                                  size=self.batch_size)
+        labels = self.store.is_positive(users, items).astype(np.float32)
+        return {"user_id": users.astype(np.int32),
+                "item_id": items.astype(np.int32), "label": labels}
 
 
 class EvaluationSampler:

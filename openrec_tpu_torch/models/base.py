@@ -21,6 +21,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from openrec_tpu_torch.device import resolve_device
+from openrec_tpu_torch.modules.embedding import (embedding_init,
+                                                 embedding_lookup)
+
 
 class Recommender(nn.Module):
     """Base class; subclasses define loss/score."""
@@ -72,3 +76,33 @@ class Recommender(nn.Module):
                 raise ValueError(f"'{key}': shape {tuple(value.shape)} != "
                                  f"{tuple(param.shape)}")
             param.copy_(value)
+
+
+class FactorRecommender(Recommender):
+    """A recommender over `user_embed` [U, Du], `item_embed` [I, Di] and
+    `item_bias` [I, 1] (zeros), serving u.V^T + b: BPR, PMF, WRMF, and the
+    tables of GMF and UCML. `init(num, dim, generator=, device=)` makes
+    each embedding table (default uniform(-0.05, 0.05)), users first."""
+
+    def __init__(self, total_users: int, total_items: int,
+                 dim_user_embed: int, dim_item_embed: int, device=None,
+                 generator: torch.Generator | None = None,
+                 init=embedding_init):
+        super().__init__()
+        dev = resolve_device(device)
+        self.total_users = total_users
+        self.total_items = total_items
+        self.user_embed = nn.Parameter(init(
+            total_users, dim_user_embed, generator=generator, device=dev))
+        self.item_embed = nn.Parameter(init(
+            total_items, dim_item_embed, generator=generator, device=dev))
+        self.item_bias = nn.Parameter(
+            torch.zeros((total_items, 1), device=dev))
+
+    def lookup(self, name: str, ids, tables: dict | None = None):
+        """Rows `ids` of the table `name` (or of its override)."""
+        return embedding_lookup(self.table(name, tables), ids)
+
+    def score(self, batch: dict) -> torch.Tensor:
+        user_vec = embedding_lookup(self.user_embed, batch["user_id"])
+        return user_vec @ self.item_embed.T + self.item_bias.reshape(-1)

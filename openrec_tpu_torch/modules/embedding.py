@@ -1,7 +1,8 @@
 """Embedding tables as plain tensors + functions.
 
 Counterpart of `openrec_tpu/modules/embedding.py`: uniform(-0.05, 0.05)
-init, look-up, and norm censoring. A table is a [num, dim] tensor (an
+init, look-up, and norm censoring (also in place, for a model's
+`post_step`). A table is a [num, dim] tensor (an
 `nn.Parameter` inside a model).
 """
 
@@ -38,14 +39,22 @@ def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
         *ids.shape, *table.shape[1:])
 
 
-def censor_norm(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:
-    """New table with rows `ids` projected onto the unit ball:
-    row /= max(||row||, eps). Duplicate ids are safe: the update is a pure
-    function of the original row."""
-    ids = torch.as_tensor(ids, device=table.device).long()
+def censor_norm_(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:
+    """Project rows `ids` of `table` onto the unit ball IN PLACE:
+    row /= max(||row||, eps); returns `table`. Duplicate ids are safe: every
+    copy of a row is computed from the original row before any is written,
+    so whichever copy lands last (`index_copy_` leaves that open on CUDA)
+    writes the same value."""
+    ids = torch.as_tensor(ids, device=table.device).long().reshape(-1)
     rows = table.index_select(0, ids)
     norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
-    return table.index_copy(0, ids, rows / torch.clamp(norm, min=eps))
+    return table.index_copy_(0, ids, rows / torch.clamp(norm, min=eps))
+
+
+def censor_norm(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:
+    """New table with rows `ids` projected onto the unit ball (the
+    functional form of `censor_norm_`)."""
+    return censor_norm_(table.clone(), ids, eps)
 
 
 def censor_max_norm(table: torch.Tensor, ids,

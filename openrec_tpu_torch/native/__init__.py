@@ -1,8 +1,10 @@
 """ctypes bindings for the native host-sampling library.
 
 Counterpart of `openrec_tpu/native/__init__.py`, for the entry points the
-port's `PairwiseSampler` calls: `build_hash_table`, `shuffle_pairs`,
-`pairwise_negatives_seq` and `pairwise_batch_hash`, plus `available()`.
+port's `PairwiseSampler` and `StratifiedPointwiseSampler` call:
+`build_hash_table`, `shuffle_pairs`, `pairwise_negatives_seq`,
+`pairwise_batch_hash` and `stratified_pointwise_batch_hash`, plus
+`available()`.
 The library is the port's own `sampler.cpp`, built with g++ at first use
 (`-O3 -shared -fPIC -std=c++17`, `-march=native` with a retry without
 it) into `openrec_tpu_torch/build/` under a name keyed by a hash of the
@@ -83,6 +85,10 @@ def load():
         lib.shuffle_pairs.argtypes = [i32p, i32p, i64, u64]
         lib.pairwise_negatives_seq.argtypes = [
             i64p, i64, i32p, i64, i64, u64, i32, i32, i32p]
+        lib.stratified_pointwise_hash.argtypes = [
+            i64p, i64, i32p, i32p, i64p, i64, i64, i64, i64, u64, i32,
+            i32p, i32p, np.ctypeslib.ndpointer(np.float32,
+                                               flags="C_CONTIGUOUS")]
         _lib = lib
         return _lib
 
@@ -167,3 +173,26 @@ def pairwise_batch_hash(hash_table: np.ndarray, rec_users: np.ndarray,
         total_items, seed & (2 ** 64 - 1), max_rounds, threads,
         out_u, out_p, out_n)
     return out_u, out_p, out_n
+
+
+def stratified_pointwise_batch_hash(
+        hash_table: np.ndarray, rec_users: np.ndarray,
+        rec_items: np.ndarray, record_idx: np.ndarray, n_neg: int,
+        total_users: int, total_items: int, seed: int,
+        max_rounds: int = 64):
+    """One pass of a stratified pointwise batch: the len(record_idx)
+    records `record_idx` (label 1), then n_neg uniform (user, item) pairs
+    rejected against the positives (label 0). (users i32, items i32,
+    labels f32)."""
+    lib = _lib_or_raise()
+    n_pos = len(record_idx)
+    b = n_pos + int(n_neg)
+    record_idx = np.ascontiguousarray(record_idx, dtype=np.int64)
+    out_u = np.empty(b, dtype=np.int32)
+    out_i = np.empty(b, dtype=np.int32)
+    out_l = np.empty(b, dtype=np.float32)
+    lib.stratified_pointwise_hash(
+        hash_table, len(hash_table), rec_users, rec_items, record_idx,
+        n_pos, int(n_neg), total_users, total_items, seed & (2 ** 64 - 1),
+        max_rounds, out_u, out_i, out_l)
+    return out_u, out_i, out_l

@@ -294,7 +294,25 @@ def bucket_score_topk(user_vecs, item_table, item_bias, k: int,
     then shrinks until at least k buckets hold a real item (:396-405), and
     the table-block shrink rule applies inside the bucket pass.
     """
-    I = item_table.shape[0]
+    bucket = choose_bucket(item_table.shape[0], k, bucket, recall_target,
+                           per_bucket)
+    if per_bucket == 2:
+        v1, i1, v2, i2 = bucket_max2_scores(user_vecs, item_table,
+                                            item_bias, bucket=bucket)
+        vals = torch.cat([v1, v2], dim=1)
+        ids = torch.cat([i1, i2], dim=1)
+    else:
+        vals, ids = bucket_max_scores(user_vecs, item_table, item_bias,
+                                      bucket=bucket)
+    top_vals, pos = torch.topk(vals, k, dim=1)
+    return top_vals, ids.gather(1, pos)
+
+
+def choose_bucket(I: int, k: int, bucket: int = 128,
+                  recall_target: float | None = None,
+                  per_bucket: int = 1) -> int:
+    """The bucket ratio `bucket_score_topk` hands to K1/K2 for a catalog of
+    I items (its docstring gives the rule)."""
     if k > I:
         raise ValueError(f"k={k} > {I} items")
     if per_bucket not in (1, 2):
@@ -317,13 +335,4 @@ def bucket_score_topk(user_vecs, item_table, item_bias, k: int,
 
     while bucket > 1 and nonempty_buckets(bucket) < k:
         bucket //= 2
-    if per_bucket == 2:
-        v1, i1, v2, i2 = bucket_max2_scores(user_vecs, item_table,
-                                            item_bias, bucket=bucket)
-        vals = torch.cat([v1, v2], dim=1)
-        ids = torch.cat([i1, i2], dim=1)
-    else:
-        vals, ids = bucket_max_scores(user_vecs, item_table, item_bias,
-                                      bucket=bucket)
-    top_vals, pos = torch.topk(vals, k, dim=1)
-    return top_vals, ids.gather(1, pos)
+    return bucket

@@ -51,9 +51,9 @@ from openrec_tpu_torch import checkpoint as ckpt_lib
 from openrec_tpu_torch.convert import flatten_tree, unflatten_like
 from openrec_tpu_torch.data.pipeline import device_iterator, to_device
 from openrec_tpu_torch.device import resolve_device
-from openrec_tpu_torch.metrics import (AUC, NDCG, DeviceDictMean, DeviceMean,
-                                       DictMean, Mean, Precision, Recall,
-                                       ids_to_masks)
+from openrec_tpu_torch.metrics import (DeviceDictMean, DeviceMean, DictMean,
+                                       Mean, ids_to_masks)
+from openrec_tpu_torch.metrics.ranking import ranking_metrics
 from openrec_tpu_torch.training.optim import apply_updates, lazy_adam
 from openrec_tpu_torch.training.sparse import make_sparse_train_step
 
@@ -235,10 +235,7 @@ class Trainer:
     @torch.no_grad()
     def _eval_batch(self, user_id, pos_mask, excl_mask, at):
         pred = self.model.score({"user_id": user_id})
-        return {"AUC": AUC(pos_mask, pred, excl_mask),
-                "Recall": Recall(pos_mask, pred, excl_mask, at=at),
-                "NDCG": NDCG(pos_mask, pred, excl_mask, at=at),
-                "Precision": Precision(pos_mask, pred, excl_mask, at=at)}
+        return ranking_metrics(pos_mask, pred, excl_mask, at=at)
 
     def evaluate(self, eval_sampler, at=(50, 100),
                  eval_fn: Callable = None, scorer=None,

@@ -1,0 +1,45 @@
+"""Smoke-run every example script of the port on the CPU, at the reduced
+size of OPENREC_EXAMPLE_SMALL and ~30 iterations, in the manner of
+tests/test_examples.py. Each runs in a subprocess with
+OPENREC_EXAMPLE_DEVICE=cpu (without it the examples run on CUDA); the
+training ones must reach their step-30 evaluation."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES_DIR = os.path.join(REPO, "openrec_tpu_torch", "examples")
+EXAMPLES = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
+                  if f.endswith(".py") and f != "__init__.py")
+# the JAX package's examples that the port carries so far
+PORTED = ["bpr_citeulike", "bpr_device_sampled", "pmf_citeulike",
+          "serving_retrieval", "ucml_citeulike"]
+
+
+def test_every_example_is_covered():
+    assert EXAMPLES == PORTED
+    for name in EXAMPLES:      # each mirrors a JAX example of its name
+        assert os.path.isfile(os.path.join(REPO, "examples", name + ".py"))
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_smoke(name, tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(OPENREC_EXAMPLE_DEVICE="cpu", OPENREC_EXAMPLE_ITERS="31",
+               OPENREC_EXAMPLE_EVAL_INTERVAL="30", OPENREC_EXAMPLE_SMALL="1",
+               OPENREC_CKPT_DIR=str(tmp_path / "ckpt"), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"openrec_tpu_torch.examples.{name}"],
+        cwd=tmp_path, env=env, timeout=300,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert proc.returncode == 0, f"{name} failed:\n{proc.stdout[-4000:]}"
+    if name == "serving_retrieval":
+        assert proc.stdout.count("top-3 of user") == 3
+    else:
+        assert "Iter 30 " in proc.stdout and "[val] AUC=" in proc.stdout
+    if name in ("bpr_citeulike", "pmf_citeulike"):
+        assert (tmp_path / "ckpt" / "ckpt-30.npz").is_file()

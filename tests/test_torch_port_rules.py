@@ -140,3 +140,26 @@ def test_cpu_tensors_count_no_kernel_launch():
     fused_score_topk(u, v, None, 10)
     assert (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches,
             fused_score_topk.launches) == before == (0, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["PMF", "WRMF", "GMF", "UCML",
+                                  "DevicePointwiseSampler"])
+def test_zoo_entry_points_need_cuda_or_explicit_cpu(name):
+    """The zoo's models and the on-device pointwise sampler default to
+    CUDA like every other entry point, and run on the CPU when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import openrec_tpu_torch as port
+    from openrec_tpu_torch.data import InteractionStore
+    if name == "DevicePointwiseSampler":
+        store = InteractionStore(np.array([(0, 1), (1, 2)], dtype=[
+            ("user_id", np.int32), ("item_id", np.int32)]), 4, 4)
+        args = (store, 8)
+    else:
+        args = (4, 5, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(port, name)(*args)
+    made = getattr(port, name)(*args, device="cpu")
+    tensors = (list(made.parameters()) if isinstance(made, torch.nn.Module)
+               else [made._rec_users])
+    assert all(t.device.type == "cpu" for t in tensors)

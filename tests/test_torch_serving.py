@@ -23,7 +23,8 @@ from openrec_tpu.serving import CachedDotProductScorer as JScorer
 from openrec_tpu_torch import convert
 from openrec_tpu_torch.metrics import (AUC, NDCG, Precision, Recall,
                                        chunked_dot_eval_metrics)
-from openrec_tpu_torch.metrics.ranking import ids_to_masks
+from openrec_tpu_torch.metrics.ranking import (ids_to_masks,
+                                               ranking_metrics)
 from openrec_tpu_torch.models import BPR
 from openrec_tpu_torch.modules.embedding import embedding_lookup
 from openrec_tpu_torch.serving import CachedDotProductScorer
@@ -184,6 +185,33 @@ def test_dense_metrics_match_jax_with_ties():
             tf(tpos, tp, texcl, at=AT).numpy(),
             np.asarray(jf(jpos, jp, jexcl, at=AT)), rtol=1e-6,
             err_msg=tf.__name__)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_ranking_metrics_equals_the_four_metrics(ties):
+    """`ranking_metrics` (one rank pass, what Trainer.evaluate calls) gives
+    exactly AUC, Recall, NDCG and Precision called one by one, and JAX's."""
+    rng = np.random.default_rng(10)
+    B, I = 6, 200
+    pred = (rng.integers(-3, 4, size=(B, I)) if ties
+            else rng.normal(size=(B, I))).astype(np.float32)
+    pos, excl = _eval_ids(11, B, items=I)
+    tpos, texcl = ids_to_masks(torch.from_numpy(pos),
+                               torch.from_numpy(excl), I)
+    jpos, jexcl = j_ids_to_masks(jnp.asarray(pos), jnp.asarray(excl), I)
+    tp, jp = torch.from_numpy(pred), jnp.asarray(pred)
+    got = ranking_metrics(tpos, tp, texcl, at=AT)
+    assert set(got) == {"AUC", "Recall", "NDCG", "Precision"}
+    assert torch.equal(got["AUC"], AUC(tpos, tp, texcl))
+    np.testing.assert_allclose(got["AUC"].numpy(),
+                               np.asarray(jAUC(jpos, jp, jexcl)), rtol=1e-6)
+    for tf, jf in [(Recall, jRecall), (NDCG, jNDCG),
+                   (Precision, jPrecision)]:
+        name = tf.__name__
+        assert torch.equal(got[name], tf(tpos, tp, texcl, at=AT)), name
+        np.testing.assert_allclose(
+            got[name].numpy(), np.asarray(jf(jpos, jp, jexcl, at=AT)),
+            rtol=1e-6, err_msg=name)
 
 
 def test_chunked_metrics_match_dense_padded_table():
