@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py               # every phase, from the repo root
+    python3 chip_smoke.py --phases 1,2  # build and compare the kernels
+    python3 chip_smoke.py --phases 1,2,4    # ... and time them
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order (`--phases` picks some; phase 1 always runs); any
+failure raises and exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels from
      openrec_tpu_torch/csrc with nvcc, one process per source, all at once
      (set-up time, printed).
   2. hold each kernel against its plain PyTorch version on the card: for
      K1/K2 (`K1K2_CASES`; bf16 runs the tensor-core route, f32 the
-     CUDA-core route) f32 and bf16, D in {50, 60, 64}, a ragged catalog
-     tail, bucket = 1, a split bucket range, B = 37, bf16 tables whose
-     rows start 8- or 2-byte aligned (views into their storage), twin
+     CUDA-core route) f32 and bf16, D in {50, 60, 64, 384}, a ragged
+     catalog tail, bucket = 1, a split bucket range, B = 37, tables whose
+     rows start 8-, 4- or 2-byte aligned (views into their storage), twin
      bucket members (exact ties: slot 1 keeps the earlier, K2's slot 2 the
-     twin), and the serving shapes; for K3 k in {1, 100,
+     twin), no bias, and the serving shapes; for K3 k in {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
      start on a 16-byte boundary, all-equal scores (K3's rescan branch),
@@ -107,7 +110,8 @@ Prints a {"requests": ...} line with the serving latencies, a
 for K1/K2 and the training path for K3, `launches_zoo` from phase 7),
 and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}. With --out FILE, the full record (every check, latency,
+"count": ...}}; a phase that did not run prints nothing, and the fields
+it fills stay null. With --out FILE, the full record (every check, latency,
 profile and timing) is also written there as JSON.
 """
 
@@ -135,10 +139,27 @@ BATCH, K, REQUESTS = 256, 100, 8
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
+F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
+PHASES = range(1, 8)
 
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def kernel_name(symbol):
+    """'bucket_max_f32_kernel<Lb1>' from a mangled kernel symbol such as
+    _ZN12_GLOBAL__N_121bucket_max_f32_kernelILb1EEEv...: the last name of
+    the nested name and its raw template arguments."""
+    i, name = (3 if symbol.startswith("_ZN") else 2), symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+    if symbol[i:i + 1] == "I":
+        name += "<" + symbol[i + 1:symbol.index("E", i)] + ">"
+    return name
 
 
 def near(x, y):
@@ -222,10 +243,12 @@ def bucket_of(bt, v, bucket):
 
 K1K2_CASES = [
     # name, B, I, D, dtype, bucket, layout: "" | "row" (the table is a view
-    # one row into its storage: D = 60 rows of 120 bytes start 8-byte
-    # aligned) | "element" (a view one element in: 2-byte aligned rows) |
+    # one row into its storage: bf16 D = 60 rows of 120 bytes and f32 D =
+    # 50 rows of 200 bytes start 8-byte aligned) | "element" (a view one
+    # element in: 2-byte aligned bf16 rows, 4-byte aligned f32 rows) |
     # "twins" (member 2m+1 of every bucket repeats member 2m, bias and all:
     # exact ties inside a bucket, where slot 1 must keep the earlier member)
+    # | "nobias" (item_bias None)
     ("f32 D=50 ragged", 37, 5_000, 50, "float32", 4, ""),
     ("bf16 D=64", 70, 20_000, 64, "bfloat16", 16, ""),
     ("bf16 bucket=1", 9, 1_000, 64, "bfloat16", 1, ""),
@@ -236,6 +259,14 @@ K1K2_CASES = [
      "element"),
     ("bf16 D=64 twin members", 40, 30_000, 64, "bfloat16", 16, "twins"),
     ("bf16 B=37", 37, 10_000, 64, "bfloat16", 8, ""),
+    # the fp32 route's cp.async ring: ties across slots, every view, no
+    # bias, one slot at D = 384 reused by 8 members, one member a block
+    ("f32 twin members", 40, 30_000, 50, "float32", 16, "twins"),
+    ("f32 D=50 view one row in", 50, 9_999, 50, "float32", 8, "row"),
+    ("f32 view one element in", 20, 5_000, 64, "float32", 4, "element"),
+    ("f32 no bias", 256, 30_000, 50, "float32", 64, "nobias"),
+    ("f32 D=384", 256, 20_000, 384, "float32", 16, ""),
+    ("f32 bucket=1", 9, 1_000, 50, "float32", 1, ""),
     ("amazon K1 shape", BATCH, AMAZON["items"], 64, "bfloat16", 64, ""),
     ("amazon K2 shape", BATCH, AMAZON["items"], 64, "bfloat16", 256, ""),
     # the buckets `pallas` (K1) and `pallas2` (K2) pick at CiteULike
@@ -251,7 +282,8 @@ def k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket, layout):
     v = torch.randn(I, D, generator=gen, device=dev)
     b = torch.randn(I, generator=gen, device=dev)
     if layout == "twins":
-        blk = 128 * bt.bucket_geometry(I, D, 2, bucket)[0]
+        blk = 128 * bt.bucket_geometry(I, D, torch.finfo(dt).bits // 8,
+                                       bucket)[0]
         t = torch.arange(I, device=dev)
         odd = ((t % blk) // 128) % 2 == 1
         v[odd] = v[t[odd] - 128]
@@ -263,9 +295,9 @@ def k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket, layout):
         flat = torch.empty(I * D + 1, device=dev, dtype=dt)
         flat[1:] = v.reshape(-1)
         v = flat[1:].view(I, D)
-    if layout and layout != "twins" and v.data_ptr() % 16 == 0:
+    if layout in ("row", "element") and v.data_ptr() % 16 == 0:
         fail(f"{layout} view is 16-byte aligned")
-    return u, v, b
+    return u, v, None if layout == "nobias" else b
 
 
 def phase_compare(torch, bt, gen, dev):
@@ -280,7 +312,7 @@ def phase_compare(torch, bt, gen, dev):
             line = dict(case=name, kernel=kname, B=B, I=I, D=D, dtype=dtype,
                         bucket=bucket,
                         route="mma-bf16" if dtype == "bfloat16"
-                        else "fma-f32",
+                        else F32_VARIANT,
                         row_address_mod_16=v.data_ptr() % 16,
                         max_abs_err=err, id_mismatch_not_tie=bad,
                         id_mismatch_tie=ties)
@@ -1487,10 +1519,9 @@ def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
     t_ops = 2.0 * B * I * D / PEAK_OPS[dtype] * 1e3
     shape = {"B": B, "I": I, "D": D, "dtype": dtype, "bucket": bucket,
              "L": L, "k": K}
-    if dtype == "bfloat16":
-        shape.update(bt.mma_plan(B, I, D, bucket, top2, torch.cuda
-                                 .get_device_properties(u.device)
-                                 .multi_processor_count)._asdict())
+    plan = bt.mma_plan if dtype == "bfloat16" else bt.f32_plan
+    shape.update(plan(B, I, D, bucket, top2, torch.cuda.get_device_properties(
+        u.device).multi_processor_count)._asdict())
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1537,12 +1568,14 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
                                         bucket_at(AMAZON)))
         entry["citeulike"] = time_bucket_kernel(torch, bt, *citeulike, top2,
                                                 bucket_at(CITEULIKE))
-        entry["citeulike"]["variant"] = "fma-f32"
+        entry["citeulike"]["variant"] = F32_VARIANT
         entry["citeulike"]["max_abs_err"] = next(
-            c["max_abs_err"] for c in compare_report
-            if c["kernel"] == kname and c["dtype"] == "float32"
-            and c["I"] == CITEULIKE["items"]
-            and c["bucket"] == entry["citeulike"]["shape"]["bucket"])
+            (c["max_abs_err"] for c in compare_report
+             if c["kernel"] == kname and c["dtype"] == "float32"
+             and c["I"] == CITEULIKE["items"]
+             and c["bucket"] == entry["citeulike"]["shape"]["bucket"]),
+            None)
+        entry["citeulike"]["launches"] = entry["launches_zoo"] = None
         entries.append(entry)
         for name, t in (("amazon", entry), ("citeulike", entry["citeulike"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
@@ -1622,7 +1655,7 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches):
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
              "replaces": "openrec_tpu/ops/topk.py:58",
              "replaces_function": "_fused_topk_kernel",
-             "launches": None, "max_abs_err": err}
+             "launches": None, "launches_zoo": None, "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
@@ -1640,7 +1673,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="write the full record here as JSON")
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma list of the phases to run (default all; "
+                    "phase 1 always runs): e.g. 1,2 builds and compares "
+                    "the kernels, 1,2,4 times them too")
     args = ap.parse_args(argv)
+    phases = {1} | {int(x) for x in args.phases.split(",") if x.strip()}
+    if not phases <= set(PHASES):
+        ap.error(f"--phases: {sorted(phases - set(PHASES))} is no phase")
     t_start = time.perf_counter()
 
     import torch
@@ -1671,108 +1711,131 @@ def main(argv=None):
     build_s = time.perf_counter() - t
     print(f"build: {build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}",
           flush=True)
+    ptxas = []
     for name, text in logs.items():
+        kernel = "?"
         for ln in text.splitlines():
+            if "Function properties for " in ln:
+                kernel = kernel_name(ln.split("Function properties for ")[1])
             if "registers" in ln or "spill" in ln:
-                print(f"ptxas {name}: {ln.strip()}", flush=True)
+                ptxas.append(f"ptxas {name} {kernel}: {ln.strip()}")
+                print(ptxas[-1], flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
 
-    # phase 2
-    errs, compare_report = phase_compare(torch, bt, gen, dev)
-    errs["K3"], k3_report = phase_compare_k3(torch, tk, gen, dev)
-    compare_report += k3_report
-    torch.cuda.empty_cache()
+    # A skipped phase prints nothing; what it would fill stays null.
+    errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
+    serve, kernels, train, dlrm, zoo = {}, [], None, None, None
 
-    # phase 3
-    serve = {}
-    for cfg in (AMAZON, CITEULIKE):
-        serve[cfg["name"]] = phase_serve(torch, port, cfg, rng, dev)
+    # phase 2
+    if 2 in phases:
+        errs, compare_report = phase_compare(torch, bt, gen, dev)
+        errs["K3"], k3_report = phase_compare_k3(torch, tk, gen, dev)
+        compare_report += k3_report
         torch.cuda.empty_cache()
 
+    # phase 3
+    if 3 in phases:
+        for cfg in (AMAZON, CITEULIKE):
+            serve[cfg["name"]] = phase_serve(torch, port, cfg, rng, dev)
+            torch.cuda.empty_cache()
+
     # phase 4
-    kernels = phase_time(torch, bt, gen, dev, errs,
-                         serve["amazon"]["launches"], compare_report)
-    kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
-                                 serve["amazon"]["launches"]["K3"]))
-    torch.cuda.empty_cache()
+    if 4 in phases:
+        launches = serve["amazon"]["launches"] if serve else dict.fromkeys(
+            ("K1", "K2", "K3"))
+        kernels = phase_time(torch, bt, gen, dev, errs, launches,
+                             compare_report)
+        kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
+                                     launches["K3"]))
+        torch.cuda.empty_cache()
 
     # phase 5
-    train = phase_train(torch, port, args.seed, dev)
-    kernels[-1]["launches"] = train["launches"]["K3"]
-    torch.cuda.empty_cache()
+    if 5 in phases:
+        train = phase_train(torch, port, args.seed, dev)
+        if kernels:
+            kernels[-1]["launches"] = train["launches"]["K3"]
+        torch.cuda.empty_cache()
 
     # phase 6
-    t6 = time.perf_counter()
-    dlrm = phase_dlrm(torch, port, args.seed, dev)
-    dlrm["phase_s"] = time.perf_counter() - t6
-    print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s", flush=True)
-    torch.cuda.empty_cache()
+    if 6 in phases:
+        t6 = time.perf_counter()
+        dlrm = phase_dlrm(torch, port, args.seed, dev)
+        dlrm["phase_s"] = time.perf_counter() - t6
+        print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
 
     # phase 7
-    t7 = time.perf_counter()
-    zoo = phase_zoo(torch, port, args.seed, dev)
-    zoo["phase_s"] = time.perf_counter() - t7
-    for entry in kernels:
-        entry["launches_zoo"] = zoo["launches"][entry["name"][:2]]
-        if "citeulike" in entry:
-            entry["citeulike"]["launches"] = entry["launches_zoo"]
+    if 7 in phases:
+        t7 = time.perf_counter()
+        zoo = phase_zoo(torch, port, args.seed, dev)
+        zoo["phase_s"] = time.perf_counter() - t7
+        for entry in kernels:
+            entry["launches_zoo"] = zoo["launches"][entry["name"][:2]]
+            if "citeulike" in entry:
+                entry["citeulike"]["launches"] = entry["launches_zoo"]
     total_s = time.perf_counter() - t_start
-    print(f"phase 7 (zoo): {zoo['phase_s']:.1f} s; chip_smoke: "
-          f"{total_s:.1f} s in all", flush=True)
+    print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
+          + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
-            {"card": smi, "build_s": build_s, "total_s": total_s,
-             "compare": compare_report,
+            {"card": smi, "phases": sorted(phases), "build_s": build_s,
+             "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
              "dlrm": dlrm, "zoo": zoo},
             indent=1))
-    print(json.dumps({"requests": {name: {
-        "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
-        "launches": s["launches"]} for name, s in serve.items()}}))
-    print(json.dumps({"training": {
-        "use_native": train["host_fed"]["use_native"],
-        "val_auc_step0": train["host_fed"]["val_auc_step0"],
-        "val_auc": train["host_fed"]["log"][-1]["eval"]["val"]["AUC"],
-        "val_auc_device_sampled":
-            train["device_sampled"]["log"][-1]["eval"]["val"]["AUC"],
-        "speed": {k: {m: v[m] for m in ("steps_per_s", "examples_per_s")}
-                  | {"idle_share": v["profile"]["idle_share"]}
-                  for k, v in train["speed"].items()},
-        "retrieval": train["retrieval"]}}))
-    k = dlrm["criteo_kaggle"]
-    print(json.dumps({"dlrm": {
-        "flagship_card_vs_cpu": dlrm["flagship_card_vs_cpu"],
-        "criteo_kaggle": {
-            what: {m: k[what][m] for m in (
-                "ms_per_step", "examples_per_s", "device_busy_ms_per_step",
-                "idle_share", "max_memory_allocated_gb", "loss_first",
-                "loss_last")} for what in ("sparse", "dense")}
-        | {"val_auc_step0": k["sparse"]["val_auc_step0"],
-           "val_auc": k["sparse"]["val_auc"],
-           "untouched_rows": k["sparse"]["untouched_rows"],
-           "bf16_forward_max_abs_diff": k["bf16_forward_max_abs_diff"]}}}))
-    print(json.dumps({"zoo": {"launches": zoo["launches"]} | {
-        name: {"host_fed": {m: zoo[name]["host_fed"][m] for m in (
-            "steps_per_s", "examples_per_s", "device_busy_ms_per_call",
-            "idle_share", "val")},
-            "val_step0": zoo[name]["val_step0"],
-            "card_vs_cpu": zoo[name]["card_vs_cpu"]["max_abs_param_diff"],
-            "max_memory_allocated_gb": zoo[name]["max_memory_allocated_gb"],
-            "recall_vs_exact": zoo[name]["serving"]["recall_vs_exact"],
-            "k1k2_vs_plain": zoo[name]["serving"]["k1k2_vs_plain"],
-            "k3": zoo[name]["serving"]["k3"]}
-        | ({"device_sampled": {m: zoo[name]["device_sampled"][m] for m in (
-            "steps_per_s", "examples_per_s", "idle_share", "val_start",
-            "val")}}
-           if "device_sampled" in zoo[name] else {})
-        | ({"touched_norms": zoo[name]["touched_norms"]}
-           if "touched_norms" in zoo[name] else {})
-        for name in ZOO_MODELS}}))
-    print(json.dumps({"kernels": kernels}))
+    if serve:
+        print(json.dumps({"requests": {name: {
+            "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
+            "launches": s["launches"]} for name, s in serve.items()}}))
+    if train:
+        print(json.dumps({"training": {
+            "use_native": train["host_fed"]["use_native"],
+            "val_auc_step0": train["host_fed"]["val_auc_step0"],
+            "val_auc": train["host_fed"]["log"][-1]["eval"]["val"]["AUC"],
+            "val_auc_device_sampled":
+                train["device_sampled"]["log"][-1]["eval"]["val"]["AUC"],
+            "speed": {k: {m: v[m] for m in ("steps_per_s", "examples_per_s")}
+                      | {"idle_share": v["profile"]["idle_share"]}
+                      for k, v in train["speed"].items()},
+            "retrieval": train["retrieval"]}}))
+    if dlrm:
+        k = dlrm["criteo_kaggle"]
+        print(json.dumps({"dlrm": {
+            "flagship_card_vs_cpu": dlrm["flagship_card_vs_cpu"],
+            "criteo_kaggle": {
+                what: {m: k[what][m] for m in (
+                    "ms_per_step", "examples_per_s", "device_busy_ms_per_step",
+                    "idle_share", "max_memory_allocated_gb", "loss_first",
+                    "loss_last")} for what in ("sparse", "dense")}
+            | {"val_auc_step0": k["sparse"]["val_auc_step0"],
+               "val_auc": k["sparse"]["val_auc"],
+               "untouched_rows": k["sparse"]["untouched_rows"],
+               "bf16_forward_max_abs_diff": k["bf16_forward_max_abs_diff"]}}}))
+    if zoo:
+        print(json.dumps({"zoo": {"launches": zoo["launches"]} | {
+            name: {"host_fed": {m: zoo[name]["host_fed"][m] for m in (
+                "steps_per_s", "examples_per_s", "device_busy_ms_per_call",
+                "idle_share", "val")},
+                "val_step0": zoo[name]["val_step0"],
+                "card_vs_cpu": zoo[name]["card_vs_cpu"]["max_abs_param_diff"],
+                "max_memory_allocated_gb":
+                    zoo[name]["max_memory_allocated_gb"],
+                "recall_vs_exact": zoo[name]["serving"]["recall_vs_exact"],
+                "k1k2_vs_plain": zoo[name]["serving"]["k1k2_vs_plain"],
+                "k3": zoo[name]["serving"]["k3"]}
+            | ({"device_sampled": {m: zoo[name]["device_sampled"][m] for m in (
+                "steps_per_s", "examples_per_s", "idle_share", "val_start",
+                "val")}}
+               if "device_sampled" in zoo[name] else {})
+            | ({"touched_norms": zoo[name]["touched_norms"]}
+               if "touched_norms" in zoo[name] else {})
+            for name in ZOO_MODELS}}))
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -42,10 +42,19 @@
 //
 // f32 (`bucket_max_f32_kernel`): the CUDA cores, fp32 FMAs. `pallas` must
 //   return exact fp32 scores (the tensor cores' TF32 keeps ~3 digits), so
-//   this route stays on them: a block owns the same 64 users x 64 lanes,
-//   256 threads of 4 users x 4 lanes each; the user tile and each member
-//   tile are staged as fp32 [D][64] and each thread does a 4x4 outer
-//   product per d from two float4 shared-memory loads.
+//   this route stays on them, and 2*B*I*D operations at 67 TFLOP/s bound
+//   it (6.5 us at the CiteULike shape, 256 x 16,980 x 50); at small
+//   buckets the [B, L] outputs' bytes come close (K1 at bucket 2 writes
+//   17.6 MB, ~5 us). A block owns the same 64 users x 64 lanes, 256
+//   threads of 4 users x 4 lanes each; each thread does a 4x4 outer
+//   product per d from two float4 loads of the transposed tiles [D][68].
+//   The tiles reach shared memory by cp.async: the user tile, then a ring
+//   of S slots (`bucketed_topk.f32_plan`), each a member tile and its bias
+//   slice. All of a tile's copies are in flight at once, and the next S-1
+//   members load while one computes. The copies are 4 bytes wide, each
+//   element straight into its transposed place: every fp32 view of the
+//   table is 4-byte aligned, so one path serves all of them, a warp's 32
+//   copies still read 128 contiguous bytes, and no second pass transposes.
 //
 // Both routes split the member range [0, bucket) across n_split blocks
 // when the grid is too small to fill the card; the blocks write partial
@@ -67,6 +76,7 @@ constexpr int kThreads = 256;
 constexpr int kStride = 64 + 4;    // f32 route: smem row stride (floats),
                                    // keeps the float4 loads 16-byte aligned
 constexpr float kPadScore = -1e30f;
+static_assert(kUsers == kBlockLanes, "one tile walk serves u and V tiles");
 
 // Running top-1 / top-2 state of one (user, lane): the reference's rule.
 template <bool TOP2>
@@ -91,129 +101,9 @@ __device__ __forceinline__ void update(float s, int a, float& v1, int& c1,
   }
 }
 
-// ------------------------------------------------------------- f32 route
+// ------------------------------------------------------------ cp.async
 
-template <bool TOP2>
-__global__ void __launch_bounds__(kThreads)
-bucket_max_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                      const float* __restrict__ bias, int B, int I, int D,
-                      int bucket, int n_split, int L,
-                      float* __restrict__ out_v1, int* __restrict__ out_i1,
-                      float* __restrict__ out_v2, int* __restrict__ out_i2) {
-  extern __shared__ float4 smem4[];
-  float* u_s = reinterpret_cast<float*>(smem4);  // [D][kStride]
-  float* v_s = u_s + D * kStride;                // [D][kStride]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // lane group: lanes tx*4 .. tx*4+3
-  const int ty = tid >> 4;   // user group: users ty*4 .. ty*4+3
-  const int z = blockIdx.x % n_split;
-  const int jh = blockIdx.x / n_split;
-  const int j = jh >> 1;
-  const int lane_base = (jh & 1) * kBlockLanes;
-  const int user0 = blockIdx.y * kUsers;
-  const long long item_block = (long long)bucket * kLanes;
-  const int a_per = (bucket + n_split - 1) / n_split;
-  const int a_begin = z * a_per;
-  const int a_end = min(bucket, a_begin + a_per);
-
-  // User tile, transposed to [d][user], zeros past B.
-  for (int e = tid; e < kUsers * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const int b = user0 + r;
-    u_s[d * kStride + r] = b < B ? u[(long long)b * D + d] : 0.f;
-  }
-
-  float v1[4][4], v2[4][4];
-  int c1[4][4], c2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v1[i][q] = -CUDART_INF_F;
-      v2[i][q] = -CUDART_INF_F;
-      c1[i][q] = a_begin;
-      c2[i][q] = a_begin;
-    }
-
-  // Walk the tile's elements e = tid, tid + 256, ... as (row, d) without
-  // dividing in the loop.
-  const int dr = kThreads / D, dd = kThreads % D;
-  const int r_first = tid / D, d_first = tid - r_first * D;
-
-  for (int a = a_begin; a < a_end; ++a) {
-    const long long t0 = j * item_block + (long long)a * kLanes + lane_base;
-    __syncthreads();  // the previous tile has been consumed
-    {
-      int r = r_first, d = d_first;
-      const float* src = v + t0 * D;
-      for (int e = tid; e < kBlockLanes * D; e += kThreads) {
-        v_s[d * kStride + r] = (t0 + r < I) ? src[e] : 0.f;
-        r += dr;
-        d += dd;
-        if (d >= D) {
-          d -= D;
-          ++r;
-        }
-      }
-    }
-    __syncthreads();
-
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 uu =
-          *reinterpret_cast<const float4*>(&u_s[d * kStride + ty * 4]);
-      const float4 vv =
-          *reinterpret_cast<const float4*>(&v_s[d * kStride + tx * 4]);
-      const float ua[4] = {uu.x, uu.y, uu.z, uu.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(ua[i], va[q], acc[i][q]);
-    }
-
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long t = t0 + tx * 4 + q;
-      const bool real = t < I;
-      const float bq = (real && bias != nullptr) ? bias[t] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        update<TOP2>(real ? acc[i][q] + bq : kPadScore, a, v1[i][q],
-                     c1[i][q], v2[i][q], c2[i][q]);
-    }
-  }
-
-  const long long plane = (long long)z * B * L;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = user0 + ty * 4 + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int lane = lane_base + tx * 4 + q;
-      const long long o = plane + (long long)b * L + (long long)j * kLanes + lane;
-      const long long base = j * item_block + lane;
-      out_v1[o] = v1[i][q];
-      out_i1[o] = (int)(base + (long long)c1[i][q] * kLanes);
-      if (TOP2) {
-        out_v2[o] = v2[i][q];
-        out_i2[o] = (int)(base + (long long)c2[i][q] * kLanes);
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------ bf16 route
-
-constexpr int kNT = 4;             // m16n8 tiles per warp: 32 lanes
-constexpr int kMaxStages = 4;
+constexpr int kMaxStages = 4;      // deepest ring of either route
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -239,15 +129,167 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most n (0 .. kMaxStages - 2) groups of this thread are in
+// Wait until at most n (0 .. kMaxStages - 1) groups of this thread are in
 // flight; wait_group takes an immediate.
 __device__ __forceinline__ void cp_async_wait(int n) {
   switch (n) {
     case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
     case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
+
+// ------------------------------------------------------------- f32 route
+
+// Shared memory: the user tile [D][kStride] floats, transposed, then
+// `stages` ring slots, each a member tile [D][kStride] in the same layout
+// followed by the member's bias slice of kBlockLanes floats. Rows past B or
+// I and bias entries past I (or with no bias) are zero-filled by the copy.
+template <bool TOP2>
+__global__ void __launch_bounds__(kThreads)
+bucket_max_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                      const float* __restrict__ bias, int B, int I, int D,
+                      int stages, int bucket, int n_split, int L,
+                      float* __restrict__ out_v1, int* __restrict__ out_i1,
+                      float* __restrict__ out_v2, int* __restrict__ out_i2) {
+  extern __shared__ float4 smem4[];
+  float* u_s = reinterpret_cast<float*>(smem4);  // [D][kStride]
+  float* ring = u_s + D * kStride;               // stages x slot_floats
+  const int slot_floats = D * kStride + kBlockLanes;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // lane group: lanes tx*4 .. tx*4+3
+  const int ty = tid >> 4;   // user group: users ty*4 .. ty*4+3
+  const int z = blockIdx.x % n_split;
+  const int jh = blockIdx.x / n_split;
+  const int j = jh >> 1;
+  const int lane_base = (jh & 1) * kBlockLanes;
+  const int user0 = blockIdx.y * kUsers;
+  const long long item_block = (long long)bucket * kLanes;
+  const int a_per = (bucket + n_split - 1) / n_split;
+  const int a_begin = z * a_per;
+  const int a_end = min(bucket, a_begin + a_per);
+  const int n_tiles = max(0, a_end - a_begin);
+  const long long t_first =
+      j * item_block + (long long)a_begin * kLanes + lane_base;
+
+  // A tile of 64 rows x D (kUsers == kBlockLanes): thread tid copies elements e = tid, tid + 256,
+  // ... (row r, depth d), walked without dividing in the loop, each to its
+  // transposed place d * kStride + r. Rows at or past `rows` read nothing.
+  const int dr = kThreads / D, dd = kThreads % D;
+  const int r_first = tid / D, d_first = tid - r_first * D;
+  auto copy_tile = [&](uint32_t dst, const float* src, long long rows) {
+    int r = r_first, d = d_first;
+    for (int e = tid; e < kBlockLanes * D; e += kThreads) {
+      const bool ok = r < rows;
+      cp_async<4>(dst + 4 * (d * kStride + r), ok ? src + e : v, ok ? 4 : 0);
+      r += dr;
+      d += dd;
+      if (d >= D) {
+        d -= D;
+        ++r;
+      }
+    }
+  };
+  auto load_tile = [&](int m) {           // member a_begin + m -> slot m % S
+    const long long t0 = t_first + (long long)m * kLanes;
+    const uint32_t dst = smem_addr(ring + (m % stages) * slot_floats);
+    copy_tile(dst, v + t0 * D, I - t0);
+    if (tid < kBlockLanes) {
+      const bool ok = bias != nullptr && t0 + tid < I;
+      cp_async<4>(dst + 4 * (D * kStride + tid), ok ? bias + t0 + tid : v,
+                  ok ? 4 : 0);
+    }
+  };
+
+  // Prologue: the user tile and members 0 .. S-1, one group per slot
+  // (empty past the last member, so that every wait below counts the
+  // same), the user tile in the first.
+  copy_tile(smem_addr(u_s), u + (long long)user0 * D, B - user0);
+  for (int m = 0; m < stages; ++m) {
+    if (m < n_tiles) load_tile(m);
+    cp_async_commit();
+  }
+
+  float v1[4][4], v2[4][4];
+  int c1[4][4], c2[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v1[i][q] = -CUDART_INF_F;
+      v2[i][q] = -CUDART_INF_F;
+      c1[i][q] = a_begin;
+      c2[i][q] = a_begin;
+    }
+
+  for (int a = a_begin; a < a_end; ++a) {
+    const int m = a - a_begin;
+    const long long t0 = t_first + (long long)m * kLanes;
+    const float* v_s = ring + (m % stages) * slot_floats;
+    cp_async_wait(stages - 1);   // member m has landed (this thread's part)
+    __syncthreads();             // ... everyone's
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float4 uu =
+          *reinterpret_cast<const float4*>(&u_s[d * kStride + ty * 4]);
+      const float4 vv =
+          *reinterpret_cast<const float4*>(&v_s[d * kStride + tx * 4]);
+      const float ua[4] = {uu.x, uu.y, uu.z, uu.w};
+      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(ua[i], va[q], acc[i][q]);
+    }
+
+    const float* bs = v_s + D * kStride;   // zeros past I or without bias
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long t = t0 + tx * 4 + q;
+      const bool real = t < I;
+      const float bq = bs[tx * 4 + q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        update<TOP2>(real ? acc[i][q] + bq : kPadScore, a, v1[i][q],
+                     c1[i][q], v2[i][q], c2[i][q]);
+    }
+    __syncthreads();   // every thread is done with the slot, bias included
+    if (m + stages < n_tiles) load_tile(m + stages);
+    cp_async_commit();
+  }
+  cp_async_wait(0);    // no copy may outlive the block (empty groups only)
+
+  const long long plane = (long long)z * B * L;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = user0 + ty * 4 + i;
+    if (b >= B) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lane = lane_base + tx * 4 + q;
+      const long long o = plane + (long long)b * L + (long long)j * kLanes + lane;
+      const long long base = j * item_block + lane;
+      out_v1[o] = v1[i][q];
+      out_i1[o] = (int)(base + (long long)c1[i][q] * kLanes);
+      if (TOP2) {
+        out_v2[o] = v2[i][q];
+        out_i2[o] = (int)(base + (long long)c2[i][q] * kLanes);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16 route
+
+constexpr int kNT = 4;             // m16n8 tiles per warp: 32 lanes
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
                                             uint32_t& r1, uint32_t& r2,
@@ -542,7 +584,7 @@ int copy_width(const void* v, int D) {
 template <bool TOP2>
 cudaError_t launch(const void* u, const void* v, const float* bias,
                    int is_bf16, int B, int I, int D, int Dp, int stages,
-                   int smem_mma, int bucket, int n_split, int L, float* v1,
+                   int smem, int bucket, int n_split, int L, float* v1,
                    int* i1, float* v2, int* i2, float* pv1, int* pi1,
                    float* pv2, int* pi2, cudaStream_t stream) {
   const int n_j = L / kLanes;
@@ -558,23 +600,26 @@ cudaError_t launch(const void* u, const void* v, const float* bias,
       return cudaErrorInvalidValue;
     auto kernel = bucket_max_mma<TOP2>;
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_mma);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const long long blocks = (long long)n_j * n_split * 2 * n_ut;
-    kernel<<<(unsigned)blocks, kThreads, smem_mma, stream>>>(
+    kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(u),
         static_cast<const __nv_bfloat16*>(v), bias, B, I, D, Dp,
         copy_width(v, D), stages, bucket, n_split, L, o_v1, o_i1, o_v2, o_i2);
   } else {
-    const size_t smem = 2 * (size_t)D * kStride * sizeof(float);
+    const long long tile = (long long)D * kStride * sizeof(float);
+    if (stages < 1 || stages > kMaxStages ||
+        smem < tile + stages * (tile + kBlockLanes * (long long)sizeof(float)))
+      return cudaErrorInvalidValue;
     auto kernel = bucket_max_f32_kernel<TOP2>;
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(n_j * 2 * n_split, n_ut);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(u), static_cast<const float*>(v), bias, B,
-        I, D, bucket, n_split, L, o_v1, o_i1, o_v2, o_i2);
+        I, D, stages, bucket, n_split, L, o_v1, o_i1, o_v2, o_i2);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
@@ -590,9 +635,10 @@ cudaError_t launch(const void* u, const void* v, const float* bias,
 // (is_bf16 ? bf16 : f32), row-major; bias [I] f32 or null (zeros). Outputs
 // [B, L] with L = 128 * ceil(I / (128 * bucket)); the top-2 outputs and the
 // [n_split, B, L] partials may be null when unused. dp, stages and smem
-// are the bf16 route's plan (`bucketed_topk.mma_plan`: padded depth, ring
-// slots, dynamic shared memory bytes), ignored for f32. Returns
-// cudaGetLastError() after the launches (0 = success).
+// are the route's launch plan: padded depth, ring slots and dynamic shared
+// memory bytes (`bucketed_topk.mma_plan` for bf16; `bucketed_topk.f32_plan`
+// for f32, which ignores dp). Returns cudaGetLastError() after the
+// launches (0 = success).
 extern "C" int openrec_bucket_max(const void* u, const void* v,
                                   const float* bias, int is_bf16, int top2,
                                   int B, int I, int D, int bucket,

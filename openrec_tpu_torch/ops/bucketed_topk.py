@@ -16,7 +16,9 @@ a CPU tensor it runs the plain version (`bucket_max_plain`), which the
 tests hold against the JAX package and `chip_smoke.py` holds against the
 kernel on the card. bf16 tables take the tensor-core route
 (`bucket_max_mma`: mma.sync fed by a cp.async ring; `mma_plan` sizes it),
-fp32 tables the CUDA-core route, which keeps the scores exact in fp32.
+fp32 tables the CUDA-core route (`bucket_max_f32_kernel`: fp32 FMAs fed
+by a cp.async ring; `f32_plan` sizes it), which keeps the scores exact in
+fp32.
 
 Geometry is the JAX package's (`_bucket_call_setup`, :211-256): the
 `_MAX_VBLOCK_BYTES` shrink rule is a TPU VMEM budget, but it changes
@@ -36,13 +38,15 @@ import torch
 
 _LANES = 128                     # bucket stride of the strided layout
 _MAX_VBLOCK_BYTES = 6 << 20      # the JAX package's per-block table budget
-_MAX_DIM = 384                   # f32 route's shared memory: 2*D*68*4 B
+_MAX_DIM = 384                   # f32 route: the user tile and one ring
+                                 # slot, D*68*4 B each, fill a block
+_F32_STRIDE = 68                 # f32 route: shared row stride (floats)
 _BLOCK_USERS, _HALVES = 64, 2    # a kernel block: 64 users x 64 of 128 lanes
 _THREADS = 256                   # 8 warps, each 16 users x 32 lanes (mma)
 _PAD_SCORE = -1e30
 _SMEM_LIMIT = 232448             # bytes of shared memory a block can use
 _SMEM_PER_SM = 233472            # an SM's 228 KB, 1 KB of it kept per block
-_MAX_STAGES = 4                  # the mma route's deepest ring
+_MAX_STAGES = 4                  # either route's deepest ring
 
 
 def _round_up(x, m):
@@ -166,6 +170,47 @@ def mma_plan(B: int, I: int, D: int, bucket: int, top2: bool,
                    min(2, _SMEM_PER_SM // (smem + 1024)))
 
 
+class F32Plan(NamedTuple):
+    bucket: int              # after the table-block shrink rule
+    L: int                   # buckets per user
+    stages: int              # member tiles in the cp.async ring
+    n_split: int             # member splits (a merge pass when > 1)
+    blocks: int              # grid: (L/128) x 2 x n_split x ceil(B/64)
+    smem: int                # dynamic shared memory bytes per block
+    blocks_per_sm: int       # as the shared memory (and threads) allow
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(B: int, I: int, D: int, bucket: int, top2: bool,
+             sm_count: int = 132, n_split: int | None = None) -> F32Plan:
+    """Launch plan of the fp32 CUDA-core route for u [B, D], V [I, D].
+
+    A block owns 64 users x 64 lanes of one grid block (`top2` changes
+    nothing here): the user tile [D][68] fp32, transposed, then a ring of
+    `stages` slots, each a member tile [D][68] and its bias slice of 64
+    floats. The ring is at most 4 deep, no deeper than the members a split
+    block walks, and as deep as two blocks an SM allow, else as one block
+    allows; at least 1. `n_split` is the member split the launch uses
+    (K3's bound pass passes its own); by default `_n_split`'s. Raises
+    where D is outside 1 .. 384."""
+    del top2
+    if not 1 <= D <= _MAX_DIM:
+        raise ValueError(f"embedding dim {D}: the kernels take 1 .. "
+                         f"{_MAX_DIM}")
+    bucket, _, L = bucket_geometry(I, D, 4, bucket)
+    if n_split is None:
+        n_split = _n_split(B, L, bucket, sm_count)
+    tile = D * _F32_STRIDE * 4
+    slot = tile + _LANES // _HALVES * 4
+    two = (_SMEM_PER_SM // 2 - 1024 - tile) // slot
+    one = (_SMEM_LIMIT - tile) // slot
+    stages = min(_MAX_STAGES, -(-bucket // n_split), two if two >= 1 else one)
+    smem = tile + stages * slot
+    blocks = (L // _LANES) * _HALVES * n_split * (-(-B // _BLOCK_USERS))
+    return F32Plan(bucket, L, stages, n_split, blocks, smem,
+                   min(2048 // _THREADS, _SMEM_PER_SM // (smem + 1024)))
+
+
 def _check(user_vecs, item_table, item_bias):
     if user_vecs.dim() != 2 or item_table.dim() != 2 \
             or user_vecs.shape[1] != item_table.shape[1]:
@@ -229,15 +274,18 @@ def _launch_ptrs(user_vecs, item_table, item_bias, top2: bool, bucket: int,
     """Launch the kernel into outputs given as device pointers: `outs` and
     `parts` are 4 each (v1, i1, v2, i2), None where unused; item_bias is
     [I] or None. bf16 inputs take the mma route with `mma_plan`'s depth,
-    ring and shared memory. K3's bound pass calls this on its own
-    workspace."""
+    ring and shared memory, fp32 inputs the CUDA-core route with
+    `f32_plan`'s ring and shared memory for this `n_split`. K3's bound
+    pass calls this on its own workspace."""
     B, D = user_vecs.shape
     I = item_table.shape[0]
     bf16 = user_vecs.dtype == torch.bfloat16
-    plan = (0, 0, 0)
     if bf16:
         mp = mma_plan(B, I, D, bucket, top2)
         plan = (mp.Dp, mp.stages, mp.smem)
+    else:
+        fp = f32_plan(B, I, D, bucket, top2, n_split=n_split)
+        plan = (0, fp.stages, fp.smem)
     err = _kernel_fn()(
         user_vecs.data_ptr(), item_table.data_ptr(),
         None if item_bias is None else item_bias.data_ptr(),

@@ -1,7 +1,8 @@
 """Port parity: the bucket-max kernels' plain PyTorch versions and
 `bucket_score_topk` against the JAX package's Pallas kernels (interpret
-mode on the CPU), on the same numpy inputs; and the launch plan of the
-kernels' bf16 tensor-core route (`mma_plan`).
+mode on the CPU), on the same numpy inputs; and the launch plans of the
+kernels' bf16 tensor-core route (`mma_plan`) and fp32 CUDA-core route
+(`f32_plan`).
 
 Tolerances: values rtol=atol=1e-5 (fp32 sums taken in another order);
 ids exact, except where the two picks score within 1e-5 of each other.
@@ -18,7 +19,8 @@ from openrec_tpu.ops.bucketed_topk import (
 import chip_smoke
 from openrec_tpu_torch.ops.bucketed_topk import (
     bucket_geometry, bucket_max2_scores, bucket_max_scores,
-    bucket_score_topk, mma_plan)
+    bucket_score_topk, f32_plan, mma_plan)
+from openrec_tpu_torch.ops.topk import fused_geometry
 
 torch.set_num_threads(1)
 
@@ -243,3 +245,61 @@ def test_mma_plan(B, I, D, bucket):
                                     min(plan.bucket, (s + 1) * a_per)))
     assert members == list(range(plan.bucket))
     assert plan.blocks >= 132 or plan.n_split * 2 > plan.bucket
+
+
+# the fp32 shapes of chip_smoke.py's phase 2, then D x B x bucket
+F32_PLAN_CASES = [(B, I, D, bucket) for _, B, I, D, dtype, bucket, _ in
+                  chip_smoke.K1K2_CASES if dtype == "float32"] + [
+    (B, 100_003, D, bucket) for D in (1, 8, 50, 64, 128, 384)
+    for B in (1, 37, 256) for bucket in (1, 2, 16, 64)]
+# (B, I, D, bucket) -> (stages, smem) at CiteULike: K1 at `pallas`'s bucket
+# 2, K2 at `pallas2`'s 16
+F32_CITEULIKE = {(256, 16_980, 50, 2): (2, 41_312),
+                 (256, 16_980, 50, 16): (4, 69_024)}
+
+
+@pytest.mark.parametrize("B,I,D,bucket", F32_PLAN_CASES)
+def test_f32_plan(B, I, D, bucket):
+    """The fp32 route's launch plan: the user tile and S ring slots (a
+    member tile and its bias slice each) fit the card's shared memory, the
+    ring is 1 .. 4 deep and no deeper than the members a split block walks,
+    as deep as two blocks an SM allow where they do, and the grid of
+    `launch()` covers every (grid block j, lane half, member split, user
+    tile) exactly once. D beyond 384 raises."""
+    plan = f32_plan(B, I, D, bucket, top2=True, sm_count=132)
+    assert plan == f32_plan(B, I, D, bucket, top2=False, sm_count=132)
+    assert plan == f32_plan(B, I, D, bucket, False, n_split=plan.n_split)
+    assert (plan.bucket, plan.L) == bucket_geometry(I, D, 4, bucket)[::2]
+    tile = D * 68 * 4                      # [D][68] fp32
+    slot = tile + 64 * 4                   # + the bias slice
+    assert plan.smem == tile + plan.stages * slot
+    assert plan.smem <= 232_448
+    members = -(-plan.bucket // plan.n_split)
+    assert 1 <= plan.stages <= min(4, members)
+    if plan.stages < min(4, members):      # the budget set the depth
+        two = 233_472 // 2 - 1024
+        assert plan.smem + slot > (two if plan.smem <= two else 232_448)
+    assert plan.blocks_per_sm == min(8, 233_472 // (plan.smem + 1024)) >= 1
+    if (B, I, D, bucket) in F32_CITEULIKE:
+        assert (plan.stages, plan.smem) == F32_CITEULIKE[B, I, D, bucket]
+    # launch()'s grid: x = (j * 2 + h) * n_split + z, y = user tile
+    n_j, n_ut = plan.L // 128, -(-B // 64)
+    x = np.arange(n_j * 2 * plan.n_split)
+    z, jh = x % plan.n_split, x // plan.n_split
+    assert plan.blocks == x.size * n_ut
+    cover = {(j, h, zz) for j, h, zz in zip(jh >> 1, jh & 1, z)}
+    assert cover == {(j, h, zz) for j in range(n_j) for h in (0, 1)
+                     for zz in range(plan.n_split)}
+    assert plan.blocks >= 132 or plan.n_split * 2 > plan.bucket
+    with pytest.raises(ValueError):
+        f32_plan(B, I, 385, bucket, top2=False)
+
+
+def test_f32_plan_k3_bound_pass():
+    """K3's bound pass launches K1's fp32 route with its own member split:
+    at CiteULike (bucket 16, split 2) it gets K2's ring, 4 slots in
+    69,024 bytes."""
+    k3 = fused_geometry(256, 16_980, 50, 100, 4, 132)
+    plan = f32_plan(256, 16_980, 50, k3.bucket, False, n_split=k3.k1_split)
+    assert (k3.bucket, k3.k1_split) == (16, 2)
+    assert (plan.stages, plan.smem, plan.L) == (4, 69_024, k3.L)
