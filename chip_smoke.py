@@ -100,15 +100,39 @@ failure raises and exits non-zero:
      near-ties; recall below target - 0.01 is printed as a finding. K1,
      K2 and K3 count their launches over the phase.
 
+  8. the multi-negative, NCF and content models at phase 5's width, data
+     and optimizer (batch 1000, lazy_adam lr 1e-3), 300 host-fed steps
+     each through Trainer.train, 100 a call, val eval every call: NBPR
+     and WCML (dim 50, margin 0.5) on Dataset.n_pairwise (K = 5, the
+     numpy sampler, 2 workers); MLPRec (32 + 32, MLP 64-32-1, dropout
+     0.2), NeuMF (GE 32, MLP 32, 64-32-1, alpha 0.5, dropout 0.2) and CDL
+     (dim 50, SDAE 8,000-200-50, dropout 0.1, a 1, b 0.01, l2_reconst
+     0.1) on Dataset.stratified_pointwise(pos_ratio=0.2) (C++ feeder);
+     CDL's items carry a synthetic binary bag of words (16,980 x 8,000
+     fp32, 1 % dense, from --seed). Checks: every loss finite, the mean
+     loss of the last 100 steps below the first 100's, val AUC and
+     Recall@50 above their step-0 values, MLPRec's and NeuMF's numpy
+     EvalManager AUC (full mode) too, CDL's reconstruction loss falling,
+     WCML's touched rows in the unit ball (1 + 1e-4), 20 steps card
+     against CPU with dropout off (rtol 1e-4, atol 1e-6; fp32, and for
+     CDL fp64, its fp32 difference recorded). NBPR (u, v, b), WCML (2u,
+     v, b - ||v||^2) and CDL (u, item_embed + enc(features), b) then
+     serve as phase 7's models do; MLPRec and NeuMF answer 8 requests
+     by model.score + torch.topk, their full-catalog score at sampled
+     pairs equal to the training logit (rtol 1e-4, atol 1e-6). Per
+     model: steps/s, examples/s, device busy ms and launches per step
+     and the idle share (torch.profiler over one 10-step call), peak
+     memory, seconds by part.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
-{"kernels": [...]} line (K1, K2, K3; `launches` from the serving path
-for K1/K2 and the training path for K3, `launches_zoo` from phase 7),
-and last
+{"legacy": ...} line, a {"kernels": [...]} line (K1, K2, K3; `launches`
+from the serving path for K1/K2 and the training path for K3,
+`launches_zoo` from phase 7, `launches_legacy` from phase 8), and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}; a phase that did not run prints nothing, and the fields
 it fills stay null. With --out FILE, the full record (every check, latency,
@@ -140,7 +164,7 @@ TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 8)
+PHASES = range(1, 9)
 
 
 def fail(msg):
@@ -1160,17 +1184,22 @@ ZOO = dict(steps=300, k=100, pos_ratio=0.2, margin=0.5, device_steps=200,
 
 def zoo_extractors(torch, name, model):
     """(user, item, bias) extractors whose u.v + b ranks items as the
-    model's score does: u, v, b for PMF and WRMF; GMF's own `user_vecs`
-    (u * w); 2u, v and b - ||v||^2 for UCML, whose -||u - v||^2 + b
-    differs from that by -||u||^2, the same for every item of a user."""
+    model's score does: u, v, b for PMF, WRMF and NBPR; GMF's own
+    `user_vecs` (u * w); 2u, v and b - ||v||^2 for UCML and WCML, whose
+    -||u - v||^2 + b differs from that by -||u||^2, the same for every
+    item of a user; CDL's own `item_vecs` (item_embed + enc(features)),
+    whose sigmoid keeps the order."""
     from openrec_tpu_torch.modules.embedding import embedding_lookup
+    euclid = name in ("UCML", "WCML")
 
     def item(p, i):
+        if name == "CDL":
+            return model.item_vecs(i)
         return embedding_lookup(p["item_embed"], i)
 
     def bias(p, i):
         b = embedding_lookup(p["item_bias"], i).reshape(-1)
-        if name == "UCML":
+        if euclid:
             b = b - torch.sum(item(p, i) ** 2, dim=1)
         return b
 
@@ -1178,7 +1207,7 @@ def zoo_extractors(torch, name, model):
         if name == "GMF":
             return model.user_vecs(i)
         u = embedding_lookup(p["user_embed"], i)
-        return 2.0 * u if name == "UCML" else u
+        return 2.0 * u if euclid else u
     return user, item, bias
 
 
@@ -1469,6 +1498,345 @@ def phase_zoo(torch, port, seed, dev, run=ZOO):
     return out
 
 
+# ------------------------------------------------------------ phase 8
+
+LEGACY_MODELS = ("NBPR", "WCML", "MLPRec", "NeuMF", "CDL")
+LEGACY_SERVED = ("NBPR", "WCML", "CDL")      # dot-product tables: K1/K2/K3
+# One profiled call of 10 steps: under torch.profiler a 100-step call
+# of these models took 14-24 s of host time each.
+LEGACY = dict(steps=300, k=100, num_negatives=5, pos_ratio=0.2,
+              card_vs_cpu_steps=20, profiled_steps=10, vocab=8_000,
+              word_density=0.01, logit_pairs=256)
+
+
+def legacy_features(seed, items, run=LEGACY):
+    """CDL's item content: a binary bag of words [items, vocab] fp32 at
+    `word_density`, from the seed. citeulike-a's vocabulary has 8,000
+    words (the CDL paper's corpus); the corpus is not in the repository,
+    so synthetic words stand in for it."""
+    rng = np.random.default_rng(seed + 8)
+    return (rng.random((items, run["vocab"]), dtype=np.float32)
+            < run["word_density"]).astype(np.float32)
+
+
+def legacy_model(port, name, U, I, features, dev, gen=None, dropout=True):
+    """One of phase 8's models at its configuration; dropout=False turns
+    MLPRec's, NeuMF's and CDL's dropout off (card against CPU)."""
+    if name in ("NBPR", "WCML"):
+        kw = {"margin": 0.5} if name == "WCML" else {}
+        return getattr(port, name)(U, I, 50, device=dev, generator=gen, **kw)
+    if name == "CDL":
+        return port.CDL(U, I, 50, features, encoder_dims=(200,),
+                        dropout=0.1 if dropout else 0.0, l2_reconst=0.1,
+                        a=1.0, b=0.01, device=dev, generator=gen)
+    kw = {"alpha": 0.5} if name == "NeuMF" else {}
+    return getattr(port, name)(U, I, 32, 32, mlp_units=(64, 32, 1),
+                               dropout=0.2 if dropout else None, device=dev,
+                               generator=gen, **kw)
+
+
+def legacy_card_vs_cpu(torch, port, name, model, features, batches, dev,
+                       dtype):
+    """The same steps on the card and on the CPU from `model`'s weights in
+    `dtype`, dropout off (the card's and the CPU's generators differ),
+    lazy_adam at phase 5's learning rate (WCML's censor included). Returns
+    the largest differences and whether every parameter and loss agrees
+    within rtol 1e-4, atol 1e-6."""
+    U, I = model.total_users, model.total_items
+    start = {k: v.detach() for k, v in model.params().items()}
+    models = {w: legacy_model(port, name, U, I, features, d,
+                              dropout=False).to(dtype)
+              for w, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    for w, m in models.items():
+        m.load_params({k: v.to(m.item_bias.device, dtype)
+                       for k, v in start.items()})
+    losses = {w: port.Trainer(m, lr=TRAIN["lr"], device=m.item_bias.device)
+              .train_step_multi(batches).cpu() for w, m in models.items()}
+    worst, outside = 0.0, 0
+    for key, p in models["cpu"].params().items():
+        q = models["card"].params()[key].detach().cpu()
+        worst = max(worst, (q - p.detach()).abs().max().item())
+        outside += int((~torch.isclose(q, p.detach(), rtol=1e-4,
+                                       atol=1e-6)).sum())
+    if not torch.isfinite(losses["card"]).all():
+        fail(f"legacy {name}: non-finite losses on the card")
+    return {"steps": len(batches), "dtype": str(dtype).split(".")[-1],
+            "max_abs_param_diff": worst, "params_outside_tolerance": outside,
+            "max_abs_loss_diff":
+                (losses["card"] - losses["cpu"]).abs().max().item(),
+            "within": outside == 0 and torch.allclose(
+                losses["card"], losses["cpu"], rtol=1e-4, atol=1e-6)}
+
+
+def legacy_eval_manager(torch, port, model, val_store, train_store, seed):
+    """The ported numpy EvalManager in full mode on the model's score
+    rows (val positives against every item that is not a train
+    positive)."""
+    def score_fn(users):
+        with torch.no_grad():
+            return model.score({"user_id": torch.as_tensor(
+                users, device=model.item_bias.device)}).cpu().numpy()
+    return port.EvalManager(at=(50,), seed=seed).evaluate(
+        score_fn, val_store, excl_stores=[train_store])
+
+
+def legacy_mlp_serving(torch, name, model, dev, rng, run):
+    """8 requests of 256 users, top-100 from `model.score` + torch.topk (no
+    kernel scores an MLP); the full-catalog score at sampled (user, item)
+    pairs must equal the training path's logit within rtol 1e-4, atol
+    1e-6 (the JAX bar, tests/test_ncf_and_numpy_eval.py:54-64)."""
+    U, I = model.total_users, model.total_items
+    out = {"requests": REQUESTS, "logit_max_abs_diff": 0.0, "ms": []}
+    for _ in range(REQUESTS):
+        r = torch.as_tensor(rng.integers(0, U, BATCH), device=dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            scores = model.score({"user_id": r})
+            vals, ids = torch.topk(scores, K, dim=1)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        if tuple(vals.shape) != (BATCH, K) or not torch.isfinite(
+                scores).all() or ids.min() < 0 or ids.max() >= I:
+            fail(f"legacy {name}: bad serving output")
+        rows = torch.as_tensor(rng.integers(0, BATCH, run["logit_pairs"]),
+                               device=dev)
+        items = torch.as_tensor(rng.integers(0, I, run["logit_pairs"]),
+                                device=dev)
+        with torch.no_grad():
+            logit = model.logit(r[rows], items)
+        at = scores[rows, items]
+        out["logit_max_abs_diff"] = max(out["logit_max_abs_diff"],
+                                        (at - logit).abs().max().item())
+        if not torch.allclose(at, logit, rtol=1e-4, atol=1e-6):
+            fail(f"legacy {name}: the full-catalog score is not the "
+                 f"training path's logit: max {out['logit_max_abs_diff']}")
+    out["p50_ms"] = float(np.median(out["ms"][1:]))
+    return out
+
+
+def legacy_run(torch, port, name, train_ds, val_ds, val, features, seed,
+               dev, log_dir, run):
+    """One model of phase 8: host-fed training through Trainer.train,
+    checks, card against CPU, serving. Returns the record."""
+    from openrec_tpu_torch.data import samplers
+    store = train_ds.store
+    U, I = store.total_users(), store.total_items()
+    B, k, steps = TRAIN["batch"], run["k"], run["steps"]
+    seconds, t = {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = legacy_model(port, name, U, I, features, dev, gen)
+    # after the first allocation: before it the allocator has no stats
+    torch.cuda.reset_peak_memory_stats(dev)
+    init = {k_: v.detach().clone() for k_, v in model.params().items()}
+    log_file = log_dir / f"{name}.jsonl"
+    trainer = port.Trainer(model, lr=TRAIN["lr"], seed=seed, device=dev,
+                           log_file=str(log_file))
+    ev0 = trainer.evaluate(val, at=(50,))
+    out = {"config": {"users": U, "items": I, "batch": B, "lr": TRAIN["lr"],
+                      "optimizer": "lazy_adam",
+                      "params": {k_: list(v.shape) for k_, v in init.items()}},
+           "val_step0": {"AUC": float(ev0["AUC"]),
+                         "Recall@50": float(ev0["Recall"][0])}}
+    if name in ("NBPR", "WCML"):
+        feed = train_ds.n_pairwise(B, run["num_negatives"],
+                                   num_parallel_calls=2)
+        host = samplers.NPairwiseSampler(store, B, run["num_negatives"],
+                                         seed=seed + 7)
+        out["feed"] = "n_pairwise (numpy sampler), 2 workers"
+    else:
+        feed = train_ds.stratified_pointwise(B, pos_ratio=run["pos_ratio"],
+                                             num_parallel_calls=2)
+        host = samplers.StratifiedPointwiseSampler(
+            store, B, pos_ratio=run["pos_ratio"], seed=seed + 7)
+        if not (feed._sampler.use_native and host.use_native):
+            fail(f"legacy {name}: the host feed did not take the native "
+                 "sampler")
+        out["feed"] = "stratified_pointwise (native sampler), 2 workers"
+    batches = [host.sample() for _ in range(k)]
+    if name == "MLPRec" or name == "NeuMF":
+        out["eval_manager_step0"] = legacy_eval_manager(
+            torch, port, model, val_ds.store, store, seed)
+    if name == "CDL":
+        with torch.no_grad():
+            reconst0 = model.loss(batches[0])[1]["reconst_loss"].item()
+    seconds["setup"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    res = trainer.train(steps, feed, eval_samplers={"val": val},
+                        eval_interval=k, steps_per_call=k, at=(50,),
+                        verbose=False)
+    recs = [json.loads(x) for x in log_file.read_text().splitlines()]
+    seconds["train"] = time.perf_counter() - t
+    losses = [r_["loss"] for r_ in recs]
+    its = [r_["iters_per_s"] for r_ in recs]
+    steps_per_s = float(np.median(its))
+    if len(recs) != steps // k or not np.all(np.isfinite(losses)):
+        fail(f"legacy {name}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"legacy {name}: the mean loss of the last {k} steps "
+             f"{losses[-1]} is not below that of the first {losses[0]}")
+    out["host_fed"] = r = {
+        "steps": steps, "steps_per_call": k,
+        "steps_per_s_by_call": its, "steps_per_s": steps_per_s,
+        "examples_per_s": steps_per_s * B, "mean_loss_by_call": losses,
+        "val": {"AUC": float(res["val"]["AUC"]),
+                "Recall@50": float(res["val"]["Recall"][0])}}
+    for metric in ("AUC", "Recall@50"):
+        if not r["val"][metric] > out["val_step0"][metric]:
+            fail(f"legacy {name}: val {metric} did not rise: "
+                 f"{out['val_step0'][metric]} -> {r['val'][metric]}")
+    t = time.perf_counter()
+    if "eval_manager_step0" in out:
+        out["eval_manager"] = legacy_eval_manager(
+            torch, port, model, val_ds.store, store, seed)
+        a0, a1 = out["eval_manager_step0"]["AUC"], out["eval_manager"]["AUC"]
+        if not a1 > a0:
+            fail(f"legacy {name}: EvalManager AUC did not rise: {a0} -> "
+                 f"{a1}")
+    if name == "CDL":
+        with torch.no_grad():
+            reconst = model.loss(batches[0])[1]["reconst_loss"].item()
+        out["reconst_loss"] = {"step0": reconst0, "end": reconst}
+        if not reconst < reconst0:
+            fail(f"legacy CDL: reconst_loss did not fall: {reconst0} -> "
+                 f"{reconst}")
+    seconds["end_checks"] = time.perf_counter() - t
+    # one more call under the profiler, after the checks of step 300
+    t = time.perf_counter()
+    n = run["profiled_steps"]
+    prof = profile_device(torch, lambda: trainer.train_step_multi(
+        batches[:n]).cpu(), 1, n / steps_per_s * 1e3)
+    r.update({"profiled_steps": n,
+              "device_busy_ms_per_step": prof["device_busy_ms_per_call"] / n,
+              "device_ops_per_step": prof["device_ops_per_call"] / n,
+              "idle_share": prof["idle_share"],
+              "top_device_ms_per_step": {
+                  key: v / n for key, v in
+                  prof["top_device_ms_per_call"].items()}})
+    seconds["profile"] = time.perf_counter() - t
+    print(f"legacy {name} host-fed ({out['feed']}): {steps} steps, "
+          f"{steps_per_s:.1f} steps/s, {steps_per_s * B:.0f} examples/s, "
+          f"device busy {r['device_busy_ms_per_step']:.4f} ms a step "
+          f"({r['device_ops_per_step']:.0f} launches; one {n}-step call), "
+          f"idle {r['idle_share']:.3f}; mean loss by call "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; val AUC {out['val_step0']['AUC']:.4f} -> "
+          f"{r['val']['AUC']:.4f}, Recall@50 "
+          f"{out['val_step0']['Recall@50']:.4f} -> "
+          f"{r['val']['Recall@50']:.4f}", flush=True)
+    if name == "WCML":
+        norms = {}
+        for table in ("user_embed", "item_embed"):
+            tab = model.params()[table].detach()
+            touched = (tab != init[table]).any(dim=1)
+            norms[table] = {
+                "touched_rows": int(touched.sum()),
+                "max_touched_norm": torch.linalg.vector_norm(
+                    tab[touched], dim=1).max().item()}
+        out["touched_norms"] = norms
+        if max(v["max_touched_norm"] for v in norms.values()) > 1.0 + 1e-4 \
+                or not all(v["touched_rows"] for v in norms.values()):
+            fail(f"legacy WCML: touched rows outside the unit ball {norms}")
+    out["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # Card against CPU in fp32, the type that trains. CDL's fp32 run is
+    # recorded and its fp64 run is the check: in fp32 Adam's first step,
+    # lr * g / (|g| + eps), turns the summation-order noise of its
+    # near-cancelling SDAE gradient sums (over 1,000 rows and 8,000
+    # words) into step differences beyond atol 1e-6, whatever the two
+    # devices, so only fp64 holds the card to the CPU's arithmetic.
+    t = time.perf_counter()
+    cmp = [torch.float32] + ([torch.float64] if name == "CDL" else [])
+    out["card_vs_cpu"] = [legacy_card_vs_cpu(
+        torch, port, name, model, features,
+        batches[:run["card_vs_cpu_steps"]], dev, dtype) for dtype in cmp]
+    if not out["card_vs_cpu"][-1]["within"]:
+        fail(f"legacy {name}: card and CPU disagree after "
+             f"{run['card_vs_cpu_steps']} steps: {out['card_vs_cpu'][-1]}")
+    seconds["card_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed + 5)
+    if name in LEGACY_SERVED:
+        out["serving"] = zoo_serving(torch, port, name, model, dev, rng)
+    else:
+        out["serving"] = legacy_mlp_serving(torch, name, model, dev, rng,
+                                            run)
+    seconds["serving"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    sv = out["serving"]
+    extra = ""
+    if name == "WCML":
+        extra = (f"; touched row norms max "
+                 f"{max(v['max_touched_norm'] for v in norms.values()):.6f}")
+    if name == "CDL":
+        extra = (f"; reconst_loss {reconst0:.4f} -> {reconst:.4f}")
+    if "eval_manager" in out:
+        extra = (f"; EvalManager AUC {out['eval_manager_step0']['AUC']:.4f}"
+                 f" -> {out['eval_manager']['AUC']:.4f}")
+    if name in LEGACY_SERVED:
+        served = ("serving recall " + json.dumps(sv["recall_vs_exact"])
+                  + f", scores max |err| {sv['score_max_abs_err']:.3g}, "
+                  "K1/K2 vs plain " + json.dumps(sv["k1k2_vs_plain"])
+                  + ", K3 " + json.dumps(sv["k3"]))
+    else:
+        served = (f"serving score + topk p50 {sv['p50_ms']:.3f} ms, score "
+                  f"vs training logit max |diff| "
+                  f"{sv['logit_max_abs_diff']:.3g}")
+    print(f"legacy {name}: card-vs-cpu {run['card_vs_cpu_steps']} steps, "
+          + ", ".join(f"{c['dtype']} params max |diff| "
+                      f"{c['max_abs_param_diff']:.3g} ("
+                      f"{c['params_outside_tolerance']} outside)"
+                      for c in out["card_vs_cpu"]) + "; peak "
+          f"{out['max_memory_allocated_gb']:.3f} GB{extra}; {served}; "
+          "seconds " + json.dumps({k_: round(v, 2)
+                                   for k_, v in seconds.items()}),
+          flush=True)
+    for m, rec in sv.get("recall_below_floor", {}).items():
+        print(f"legacy {name} finding: {m} recall {rec:.6f} is below its "
+              f"floor {TARGETS[m] - 0.01:.3f} on trained tables", flush=True)
+    return out
+
+
+def phase_legacy(torch, port, seed, dev, run=LEGACY):
+    """Phase 8: NBPR, WCML, MLPRec, NeuMF and CDL at CiteULike width on
+    phase 5's data; NBPR's, WCML's and CDL's tables then served through
+    K1/K2/K3. The kernels' counters are set to 0 here and read at the
+    end."""
+    from openrec_tpu_torch.data import Dataset, loaders
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
+                "K3": tk.fused_score_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    raw = citeulike_data(loaders, seed)
+    U, I = raw["total_users"], raw["total_items"]
+    train_ds = Dataset(raw["train_data"], U, I, seed=seed)
+    val_ds = Dataset(raw["val_data"], U, I, seed=seed)
+    val = val_ds.evaluation(BATCH, excl_datasets=[train_ds],
+                            device_masks=True)
+    features = legacy_features(seed, I, run)
+    out = {"features": {"shape": list(features.shape),
+                        "density": float(features.mean())},
+           "setup_s": time.perf_counter() - t}
+    with tempfile.TemporaryDirectory() as log_dir:
+        for name in LEGACY_MODELS:
+            out[name] = legacy_run(torch, port, name, train_ds, val_ds, val,
+                                   features, seed, dev, Path(log_dir), run)
+            torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {kname: sum(out[n]["serving"]["calls"][m]
+                       for n in LEGACY_SERVED)
+            for kname, m in (("K1", "pallas"), ("K2", "pallas2"),
+                             ("K3", "k3"))}
+    out["launches"] = launches
+    if launches != want:
+        fail(f"legacy: kernel launches {launches}, the path made {want}")
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -1575,7 +1943,8 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              and c["I"] == CITEULIKE["items"]
              and c["bucket"] == entry["citeulike"]["shape"]["bucket"]),
             None)
-        entry["citeulike"]["launches"] = entry["launches_zoo"] = None
+        entry["citeulike"]["launches"] = entry["launches_zoo"] = \
+            entry["launches_legacy"] = None
         entries.append(entry)
         for name, t in (("amazon", entry), ("citeulike", entry["citeulike"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
@@ -1655,7 +2024,8 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches):
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
              "replaces": "openrec_tpu/ops/topk.py:58",
              "replaces_function": "_fused_topk_kernel",
-             "launches": None, "launches_zoo": None, "max_abs_err": err}
+             "launches": None, "launches_zoo": None,
+             "launches_legacy": None, "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
@@ -1726,7 +2096,7 @@ def main(argv=None):
 
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
-    serve, kernels, train, dlrm, zoo = {}, [], None, None, None
+    serve, kernels, train, dlrm, zoo, legacy = {}, [], None, None, None, None
 
     # phase 2
     if 2 in phases:
@@ -1775,8 +2145,19 @@ def main(argv=None):
             entry["launches_zoo"] = zoo["launches"][entry["name"][:2]]
             if "citeulike" in entry:
                 entry["citeulike"]["launches"] = entry["launches_zoo"]
+        torch.cuda.empty_cache()
+
+    # phase 8
+    if 8 in phases:
+        t8 = time.perf_counter()
+        legacy = phase_legacy(torch, port, args.seed, dev)
+        legacy["phase_s"] = time.perf_counter() - t8
+        for entry in kernels:
+            entry["launches_legacy"] = legacy["launches"][entry["name"][:2]]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
+          + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
+             else "")
           + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
@@ -1785,7 +2166,7 @@ def main(argv=None):
             {"card": smi, "phases": sorted(phases), "build_s": build_s,
              "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
-             "dlrm": dlrm, "zoo": zoo},
+             "dlrm": dlrm, "zoo": zoo, "legacy": legacy},
             indent=1))
     if serve:
         print(json.dumps({"requests": {name: {
@@ -1834,6 +2215,26 @@ def main(argv=None):
             | ({"touched_norms": zoo[name]["touched_norms"]}
                if "touched_norms" in zoo[name] else {})
             for name in ZOO_MODELS}}))
+    if legacy:
+        print(json.dumps({"legacy": {
+            "launches": legacy["launches"], "features": legacy["features"],
+            "phase_s": legacy["phase_s"], "setup_s": legacy["setup_s"]} | {
+            name: {"host_fed": {m: legacy[name]["host_fed"][m] for m in (
+                "steps_per_s", "examples_per_s", "device_busy_ms_per_step",
+                "device_ops_per_step", "idle_share", "mean_loss_by_call",
+                "val")},
+                "val_step0": legacy[name]["val_step0"],
+                "card_vs_cpu": {c["dtype"]: c["max_abs_param_diff"]
+                                for c in legacy[name]["card_vs_cpu"]},
+                "max_memory_allocated_gb":
+                    legacy[name]["max_memory_allocated_gb"],
+                "serving": {m: v for m, v in legacy[name]["serving"].items()
+                            if m != "ms"},
+                "seconds": legacy[name]["seconds"]}
+            | {m: legacy[name][m] for m in (
+                "eval_manager_step0", "eval_manager", "reconst_loss",
+                "touched_norms") if m in legacy[name]}
+            for name in LEGACY_MODELS}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,12 @@ the pointwise samplers (`StratifiedPointwiseSampler` with its C++ branch,
 `Dataset` methods) and the on-device `DevicePointwiseSampler`. Their
 tables serve through the same scorer and kernels as BPR's
 (`examples/`: the ported example scripts).
+
+And the multi-negative and content models: NBPR and WCML (with
+`NPairwiseSampler`, `Dataset.n_pairwise` and the multi-negative losses),
+MLPRec and NeuMF (the NCF family, dropout drawn from the Trainer's
+generator), CDL with its `SDAE`, and the numpy evaluators
+(`metrics.numpy_eval`, `EvalManager`).
 """
 
 __version__ = "0.1.0"
@@ -44,22 +50,24 @@ from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.convert import (
     opt_state_from_jax, opt_state_to_numpy, params_from_jax, params_to_numpy,
     sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
-from openrec_tpu_torch.models import (BPR, CML, DLRM, GMF, PMF, UCML, WRMF,
-                                      FactorRecommender, Recommender,
+from openrec_tpu_torch.models import (BPR, CDL, CML, DLRM, GMF, NBPR, PMF,
+                                      UCML, WCML, WRMF, FactorRecommender,
+                                      MLPRec, NeuMF, Recommender,
                                       criteo_dlrm)
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
 from openrec_tpu_torch.metrics import (
-    AUC, NDCG, DeviceDictMean, DeviceMean, DictMean, Mean, Precision, Recall,
-    chunked_dot_eval_metrics, metrics_from_counts)
+    AUC, NDCG, DeviceDictMean, DeviceMean, DictMean, EvalManager, Mean,
+    Precision, Recall, chunked_dot_eval_metrics, metrics_from_counts,
+    numpy_eval)
 from openrec_tpu_torch.serving import CachedDotProductScorer
 from openrec_tpu_torch.modules import (
-    MLP, censor_max_norm, censor_norm, embedding_init, embedding_lookup,
-    losses, second_order_interaction)
+    MLP, SDAE, censor_max_norm, censor_norm, embedding_init,
+    embedding_lookup, losses, second_order_interaction)
 from openrec_tpu_torch.data import (
     Dataset, DevicePairwiseSampler, DevicePointwiseSampler,
-    EvaluationSampler, InteractionStore, PairwiseSampler,
+    EvaluationSampler, InteractionStore, NPairwiseSampler, PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
     StratifiedPointwiseSampler)
 from openrec_tpu_torch.training import (Trainer, adam, keras_adam,

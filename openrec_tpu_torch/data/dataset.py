@@ -4,17 +4,19 @@ Counterpart of `openrec_tpu/data/dataset.py`: `Dataset.__init__` builds an
 `InteractionStore`; `pairwise`, `stratified_pointwise`,
 `per_pos_stratified_pointwise` and `random_pointwise` each return a
 `Prefetcher` over a sampler seeded with the dataset's seed (each worker
-folds its id into it), and `evaluation` an `EvaluationSampler`. The
-multi-negative, explicit and temporal strategies of the JAX package come
-with the models that use them.
+folds its id into it), `n_pairwise` one over K negatives per positive
+(NBPR, WCML), and `evaluation` an `EvaluationSampler`. The explicit and
+temporal strategies of the JAX package come with the models that use
+them.
 """
 
 from __future__ import annotations
 
 from openrec_tpu_torch.data.pipeline import Prefetcher
 from openrec_tpu_torch.data.samplers import (
-    EvaluationSampler, PairwiseSampler, PerPosStratifiedPointwiseSampler,
-    RandomPointwiseSampler, StratifiedPointwiseSampler)
+    EvaluationSampler, NPairwiseSampler, PairwiseSampler,
+    PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
+    StratifiedPointwiseSampler)
 from openrec_tpu_torch.data.store import InteractionStore
 
 
@@ -39,6 +41,13 @@ class Dataset:
                             chronological=chronological)
         if chronological:
             num_parallel_calls = 1
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
+    def n_pairwise(self, batch_size, num_negatives, num_parallel_calls=1,
+                   take=None):
+        """Infinite (user, pos, [K] negatives) batches (numpy sampler)."""
+        s = NPairwiseSampler(self.store, batch_size, num_negatives,
+                             seed=self._seed)
         return Prefetcher(s, num_workers=num_parallel_calls, take=take)
 
     def stratified_pointwise(self, batch_size, pos_ratio=0.5,

@@ -6,12 +6,13 @@ Counterpart of `openrec_tpu/data/samplers.py:34-341, 458-591`: the base
 (`StratifiedPointwiseSampler`, `PerPosStratifiedPointwiseSampler`,
 `RandomPointwiseSampler`: user, item, 0/1 label) and the full-catalog
 `EvaluationSampler` (mask batches, or -1-padded id lists with
-`device_masks=True`). The same seed gives bit-identical batches to the
+`device_masks=True`), and `NPairwiseSampler` (user, positive, K
+negatives: `samplers.py:225-238`). The same seed gives bit-identical batches to the
 JAX package on every path, the numpy paths (`use_native=False`) and the
 C++ feeder (`openrec_tpu_torch/native/`, the default of `PairwiseSampler`
 and `StratifiedPointwiseSampler` whenever it builds, as in the JAX
-package). The multi-negative, explicit, temporal and feature-joined
-samplers come with the models that use them.
+package). The explicit, temporal and feature-joined samplers come with
+the models that use them.
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -210,6 +211,24 @@ class PairwiseSampler(BatchSampler):
                 clone.store._pos_items, dtype=np.int32)
             clone._seq_pos = None     # fresh private copy + shuffle
         return clone
+
+
+class NPairwiseSampler(BatchSampler):
+    """(user, positive, K uniform negatives) from the epoch stream; numpy
+    only, as in the JAX package (`samplers.py:225-238`)."""
+
+    def __init__(self, store, batch_size, num_negatives, seed=0):
+        super().__init__(store, batch_size, seed)
+        self.num_negatives = int(num_negatives)
+
+    def sample(self):
+        rec = self._next_records(self.batch_size)
+        user_id = np.asarray(rec["user_id"], dtype=np.int32)
+        p_item_id = np.asarray(rec["item_id"], dtype=np.int32)
+        n_item_id = self.store.sample_negative_items_multi(
+            user_id, self.num_negatives, rng=self.rng).astype(np.int32)
+        return {"user_id": user_id, "p_item_id": p_item_id,
+                "n_item_id": n_item_id}
 
 
 class StratifiedPointwiseSampler(BatchSampler):

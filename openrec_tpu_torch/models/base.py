@@ -10,6 +10,7 @@ npz checkpoints load by name. BPR's names hold neither character.
   model = BPR(..., device="cuda")
   loss, aux = model.loss(batch)         # autograd-able
   loss, aux = model.loss(batch, tables={"item_embed": view})
+  loss, aux = model.loss(batch, generator=gen)   # dropout draws from gen
   scores = model.score(batch)           # full-catalog serving
   model.load_params(flat)               # {path: tensor} from JAX / npz
   grads = model.grad_transform(grads, batch)   # trainer hooks, identity
@@ -29,12 +30,16 @@ from openrec_tpu_torch.modules.embedding import (embedding_init,
 class Recommender(nn.Module):
     """Base class; subclasses define loss/score."""
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         """Returns (total_loss, aux_dict). aux carries per-part losses.
         `tables` replaces embedding tables by name for this call, e.g. with
         the gathered views of the O(batch) sparse step
         (`training/sparse.py`), so that autograd never reaches the full
-        table."""
+        table. `generator` is the Trainer's `torch.Generator` (the JAX
+        package's per-step rng): a model whose loss draws randomness
+        (dropout) draws from it, and only when it is given; the others
+        never touch it, so it does not advance."""
         raise NotImplementedError
 
     def table(self, name: str, tables: dict | None = None):
@@ -42,6 +47,10 @@ class Recommender(nn.Module):
         if tables and name in tables:
             return tables[name]
         return self.get_parameter(name.replace("/", "."))
+
+    def lookup(self, name: str, ids, tables: dict | None = None):
+        """Rows `ids` of the table `name` (or of its override)."""
+        return embedding_lookup(self.table(name, tables), ids)
 
     def score(self, batch: dict) -> torch.Tensor:
         """Full-catalog scores [B, total_items] for serving/evaluation."""
@@ -98,10 +107,6 @@ class FactorRecommender(Recommender):
             total_items, dim_item_embed, generator=generator, device=dev))
         self.item_bias = nn.Parameter(
             torch.zeros((total_items, 1), device=dev))
-
-    def lookup(self, name: str, ids, tables: dict | None = None):
-        """Rows `ids` of the table `name` (or of its override)."""
-        return embedding_lookup(self.table(name, tables), ids)
 
     def score(self, batch: dict) -> torch.Tensor:
         user_vec = embedding_lookup(self.user_embed, batch["user_id"])

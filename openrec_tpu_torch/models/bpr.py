@@ -23,7 +23,8 @@ class BPR(FactorRecommender):
                          dim_item_embed, device=device, generator=generator)
         self.l2_weight = l2_weight
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         user_vec = self.lookup("user_embed", batch["user_id"], tables)
         # One gather (and one backward scatter) for pos+neg instead of two.
         p_ids = torch.as_tensor(batch["p_item_id"], device=user_vec.device)

@@ -139,7 +139,8 @@ class DLRM(Recommender):
                                1.0 - self.loss_threshold)
         return pred.reshape(-1)
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         pred = self.predict(batch["dense_features"], batch["sparse_features"],
                             tables=tables)
         label = torch.as_tensor(batch["label"], device=pred.device)

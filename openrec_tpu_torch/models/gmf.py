@@ -34,7 +34,8 @@ class GMF(FactorRecommender):
         return embedding_lookup(self.user_embed, user_ids) \
             * self.mlp[0].w[:, 0]
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         user_vec = self.lookup("user_embed", batch["user_id"], tables)
         item_vec = self.lookup("item_embed", batch["item_id"], tables)
         item_bias = self.lookup("item_bias", batch["item_id"], tables)

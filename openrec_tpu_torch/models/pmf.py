@@ -38,7 +38,8 @@ class PMF(FactorRecommender):
         self.sigmoid = sigmoid
         self.l2_reg = l2_reg
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         user_vec = self.lookup("user_embed", batch["user_id"], tables)
         item_vec = self.lookup("item_embed", batch["item_id"], tables)
         item_bias = self.lookup("item_bias", batch["item_id"], tables)

@@ -35,7 +35,8 @@ class UCML(FactorRecommender):
         return torch.cat([torch.as_tensor(batch["p_item_id"], device=dev),
                           torch.as_tensor(batch["n_item_id"], device=dev)])
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         user_vec = self.lookup("user_embed", batch["user_id"], tables)
         pn = self._item_ids(batch)
         vecs = self.lookup("item_embed", pn, tables)

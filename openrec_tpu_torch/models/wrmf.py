@@ -25,7 +25,8 @@ class WRMF(FactorRecommender):
         self.sigmoid = sigmoid
         self.l2_weight = l2_weight
 
-    def loss(self, batch: dict, tables: dict | None = None):
+    def loss(self, batch: dict, tables: dict | None = None,
+             generator: torch.Generator | None = None):
         user_vec = self.lookup("user_embed", batch["user_id"], tables)
         item_vec = self.lookup("item_embed", batch["item_id"], tables)
         item_bias = self.lookup("item_bias", batch["item_id"], tables)

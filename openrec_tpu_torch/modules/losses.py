@@ -1,11 +1,16 @@
 """Loss functions: batch in, scalar out.
 
 Counterpart of `openrec_tpu/modules/losses.py`: BPR's losses (`:32-48`),
-UCML's euclidean hinge (`:63-75`), WRMF's and PMF's pointwise MSE
-(`:121-128`), DLRM's `mse_loss` / `bce_loss` (`:131-140`) and GMF's
+the dot-product hinge (`:51-60`), UCML's euclidean hinge (`:63-75`), the
+multi-negative losses of NBPR and WCML with their WARP rank weight
+(`:78-118`), WRMF's and PMF's pointwise MSE (`:121-128`), DLRM's
+`mse_loss` / `bce_loss` (`:131-140`) and the NCF family's
 `bce_logits_loss` (`:143-148`). Sums stay sums and means stay means, as
-there. The multi-negative and softmax losses come with the models that use
-them.
+there. The hardest of K negatives is taken with `torch.amin` /
+`torch.amax`, which split the gradient evenly among tied entries as
+`jnp.min` / `jnp.max` do (`torch.min(x, dim)` gives all of it to one
+index); ties are routine, since the K negatives are drawn with
+replacement. The softmax losses come with the models that use them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,19 @@ def pairwise_log_loss(user_vec, p_item_vec, n_item_vec,
     return -torch.mean(F.logsigmoid(torch.clamp(pos - neg, min=-30.0)))
 
 
+def pairwise_hinge_loss(user_vec, p_item_vec, n_item_vec,
+                        p_item_bias=None, n_item_bias=None, margin=1.0):
+    """sum(max(margin - pos_score + neg_score, 0)) on dot-product scores
+    (the positive hinge; the legacy reference negates the sum)."""
+    pos = _dot(user_vec, p_item_vec)
+    neg = _dot(user_vec, n_item_vec)
+    if p_item_bias is not None:
+        pos = pos + p_item_bias.reshape(pos.shape)
+    if n_item_bias is not None:
+        neg = neg + n_item_bias.reshape(neg.shape)
+    return torch.sum(torch.clamp(margin - pos + neg, min=0.0))
+
+
 def pairwise_eudist_hinge_loss(user_vec, p_item_vec, n_item_vec,
                                p_item_bias=None, n_item_bias=None,
                                margin=0.5):
@@ -47,6 +65,44 @@ def pairwise_eudist_hinge_loss(user_vec, p_item_vec, n_item_vec,
     if n_item_bias is not None:
         neg = neg + n_item_bias.reshape(neg.shape)
     return torch.sum(torch.clamp(margin - (pos - neg), min=0.0))
+
+
+def _rank_weight(violations, neg_num, total_items):
+    """WARP-style rank weight log(floor(I * violations / K) + 1), in fp32
+    in that order."""
+    est_rank = torch.floor(total_items * violations.float() / neg_num)
+    return torch.log(est_rank + 1.0)
+
+
+def multi_neg_log_loss(user_vec, p_item_vec, n_item_vecs,
+                       p_item_bias, n_item_biases, total_items):
+    """NBPR: the rank-weighted log loss on the hardest of K negatives,
+    -sum(log_sigmoid(max(w * min_k(pos - neg_k), -30))).
+
+    n_item_vecs: [B, K, D]; n_item_biases: [B, K] or [B, K, 1]."""
+    B, K = n_item_vecs.shape[0], n_item_vecs.shape[1]
+    pos = _dot(user_vec, p_item_vec) + p_item_bias.reshape(-1)
+    neg = torch.einsum("bd,bkd->bk", user_vec, n_item_vecs) \
+        + n_item_biases.reshape(B, K)
+    diff = pos[:, None] - neg                      # [B, K]
+    w = _rank_weight(torch.sum(diff < 0.0, dim=1), K, total_items)
+    hardest = torch.amin(diff, dim=1)
+    return -torch.sum(F.logsigmoid(torch.clamp(w * hardest, min=-30.0)))
+
+
+def multi_neg_eudist_loss(user_vec, p_item_vec, n_item_vecs,
+                          p_item_bias, n_item_biases, total_items,
+                          margin=0.5):
+    """WCML: the rank-weighted hinge on the hardest of K negatives under
+    euclidean scores -||u - v||^2 + b."""
+    B, K = n_item_vecs.shape[0], n_item_vecs.shape[1]
+    pos = -torch.sum((user_vec - p_item_vec) ** 2, dim=-1) \
+        + p_item_bias.reshape(-1)
+    neg = -torch.sum((user_vec[:, None, :] - n_item_vecs) ** 2, dim=-1) \
+        + n_item_biases.reshape(B, K)
+    scores = torch.clamp(margin - pos[:, None] + neg, min=0.0)   # [B, K]
+    w = _rank_weight(torch.sum(scores > 0.0, dim=1), K, total_items)
+    return torch.sum(w * torch.amax(scores, dim=1))
 
 
 def pointwise_mse_loss(user_vec, item_vec, item_bias, label,

@@ -7,7 +7,9 @@ hidden layer in training, and batch norm over the batch axis with the
 BIASED variance (`jnp.var`), epsilon 1e-5.
 
 The MLP is a `ModuleList` of its layers, so the parameters of layer i
-are `{i}.w`, `{i}.b`, `{i}.bn_scale` and `{i}.bn_bias`;
+are `{i}.w`, `{i}.b`, `{i}.bn_scale` and `{i}.bn_bias` (`out_bias=False`
+leaves the last layer without `b`, as the NCF models pop it from the JAX
+tree, `openrec_tpu/models/ncf.py:59`);
 `Recommender.params()` names them `{i}/w` ..., the JAX pytree's paths (a
 list of dicts). Dropout draws its keep mask from a
 `torch.Generator`: the bits cannot match JAX's threefry, only the keep
@@ -63,23 +65,22 @@ class MLP(nn.ModuleList):
                  use_bias: bool = True, activation: Optional[str] = "relu",
                  out_activation: Optional[str] = None,
                  dropout_rate: Optional[float] = None,
-                 batch_norm: bool = False, device=None,
-                 generator: torch.Generator | None = None):
+                 batch_norm: bool = False, out_bias: bool = True,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         dev = resolve_device(device)
         self.units = list(units)
-        self.use_bias = use_bias
         self.activation = activation
         self.out_activation = out_activation
         self.dropout_rate = dropout_rate
         self.batch_norm = batch_norm
         self.generator = generator
         dims = [in_dim] + self.units
-        for d_in, d_out in zip(dims[:-1], dims[1:]):
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
             layer = _Layer()
             layer.w = nn.Parameter(glorot_uniform(
                 (d_in, d_out), generator=generator, device=dev))
-            if use_bias:
+            if use_bias and (out_bias or i < len(self.units) - 1):
                 layer.b = nn.Parameter(torch.zeros(d_out, device=dev))
             if batch_norm:
                 layer.bn_scale = nn.Parameter(torch.ones(d_out, device=dev))
@@ -94,7 +95,7 @@ class MLP(nn.ModuleList):
         n = len(self)
         for i, layer in enumerate(self):
             x = x @ layer.w.to(x.dtype)
-            if self.use_bias:
+            if hasattr(layer, "b"):
                 x = x + layer.b.to(x.dtype)
             if self.batch_norm:
                 mean = torch.mean(x, dim=0, keepdim=True)
@@ -119,6 +120,6 @@ class MLP(nn.ModuleList):
         total = 0.0
         for layer in self:
             total = total + 0.5 * torch.sum(layer.w ** 2)
-            if self.use_bias:
+            if hasattr(layer, "b"):
                 total = total + 0.5 * torch.sum(layer.b ** 2)
         return total

@@ -146,8 +146,9 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
     dropped from the step).
 
     init_fn(params) -> state: {"sparse": SparseAdamState, "dense": ...}.
-    step_fn(state, batch) -> (state, loss): updates the model's
-    parameters and the state's moments in place. The JAX package's third
+    step_fn(state, batch, generator=None) -> (state, loss): updates the
+    model's parameters and the state's moments in place; `generator`
+    reaches `model.loss` (dropout draws from it). The JAX package's third
     return value, the un-jitted step, is step_fn itself here.
     """
     if dense_tx is None:
@@ -183,7 +184,8 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         return {"sparse": SparseAdamState(count, mu, nu),
                 "dense": dense_tx.init(dense, device=dev)}
 
-    def step_fn(state: dict, batch: dict):
+    def step_fn(state: dict, batch: dict,
+                generator: torch.Generator | None = None):
         sparse_state: SparseAdamState = state["sparse"]
         params = model.params()
         # 1) unique ids per table, at a cap fixed by the batch's shape
@@ -203,7 +205,7 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         # 3) the loss over SubTable views and the dense parameters
         views = {names[path]: SubTable(uids[path], rows[path])
                  for path in specs}
-        loss, _aux = model.loss(batch, tables=views)
+        loss, _aux = model.loss(batch, tables=views, generator=generator)
         leaves = list(rows.values()) + list(dense.values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
@@ -250,7 +252,8 @@ def make_sparse_device_loop(model, table_specs, sampler, k: int, **hyper):
     def loop_fn(state, generator: torch.Generator):
         losses = []
         for _ in range(k):
-            state, loss = step_fn(state, sampler.sample(generator))
+            state, loss = step_fn(state, sampler.sample(generator),
+                                  generator)
             losses.append(loss)
         return state, torch.stack(losses)
 

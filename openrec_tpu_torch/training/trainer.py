@@ -22,10 +22,16 @@ entry point is the O(batch) sparse step of `training/sparse.py` instead:
 gather -> Adam -> scatter on the named tables, and `optimizer` (default
 optax-form `adam(lr)`) on the other parameters only.
 
+Every step of every entry point passes the trainer's `torch.Generator`
+to `model.loss(batch, generator=...)` (JAX passes a per-step rng,
+`trainer.py:103-105, 119-202`): a model whose loss draws randomness
+(MLPRec's, NeuMF's and CDL's dropout) draws from it, a model that draws
+nothing leaves it where it was, so device-sampled streams do not move.
+The same generator drives on-device sampling.
+
 Not in this slice, each coming with the model that needs it:
 `evaluate_temporal`, the per-record regression eval, and
-`update_interval` / `update_fn`. Models here draw no randomness in their
-loss, so no per-step generator is passed to `model.loss`.
+`update_interval` / `update_fn`.
 
 Behaviours kept from the JAX package and tested: `feed='auto'` reads a
 batch as stacked whenever every value has ndim >= 2 and leading dim k;
@@ -89,7 +95,8 @@ class Trainer:
           keras_adam(lr) for the reference's dense Adam trajectory. With
           sparse_tables: the dense parameters' optimizer only.
         seed: seeds the trainer's `torch.Generator` on `device`, which
-          drives on-device sampling (`train_steps_device`).
+          drives on-device sampling (`train_steps_device`) and every
+          randomness a model's loss draws (dropout).
         init_model_dir: warm-start checkpoint dir; its latest checkpoint's
           params are loaded optimistically (entries whose name and shape
           match), before the optimizer state is made.
@@ -140,11 +147,12 @@ class Trainer:
         """One optimizer step on a batch of device tensors; returns the
         total loss and the aux dict, detached, on the device."""
         if self.sparse_tables is not None:
-            self.opt_state, loss = self._sparse_step(self.opt_state, batch)
+            self.opt_state, loss = self._sparse_step(self.opt_state, batch,
+                                                     self.generator)
             return loss, {"loss": loss}
         params = self.params
         names = list(params)
-        total, aux = self.model.loss(batch)
+        total, aux = self.model.loss(batch, generator=self.generator)
         grads = torch.autograd.grad(total, [params[n] for n in names],
                                     allow_unused=True)
         grads = {n: torch.zeros_like(params[n]) if g is None else g
