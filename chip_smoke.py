@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase, from the repo root
     python3 chip_smoke.py --phases 1,2  # build and compare the kernels
     python3 chip_smoke.py --phases 1,2,4    # ... and time them
+    python3 chip_smoke.py --phases 1,9  # the visual family alone
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
@@ -12,15 +13,18 @@ failure raises and exits non-zero:
      (set-up time, printed).
   2. hold each kernel against its plain PyTorch version on the card: for
      K1/K2 (`K1K2_CASES`; bf16 runs the tensor-core route, f32 the
-     CUDA-core route) f32 and bf16, D in {50, 60, 64, 384}, a ragged
+     CUDA-core route) f32 and bf16, D in {50, 60, 64, 100, 384}, a ragged
      catalog tail, bucket = 1, a split bucket range, B = 37, tables whose
      rows start 8-, 4- or 2-byte aligned (views into their storage), twin
      bucket members (exact ties: slot 1 keeps the earlier, K2's slot 2 the
-     twin), no bias, and the serving shapes; for K3 k in {1, 100,
+     twin), no bias, and the serving shapes (Amazon; CiteULike; VBPR's
+     Tradesy bf16 D = 100, whose 200-byte rows pad to Dp 112 and start
+     every other one 8-byte aligned); for K3 k in {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
      start on a 16-byte boundary, all-equal scores (K3's rescan branch),
-     a catalog of fewer than 8*Kb items, and both serving shapes. Values
+     a catalog of fewer than 8*Kb items, and the Amazon, CiteULike and
+     Tradesy shapes (bf16 D = 100: tau's scalar item_score path). Values
      within rtol=atol=1e-5; an id may differ only where the two picks
      score within that tolerance (a different summation order); K2's
      second slot as id sets. Every user must have at least min(k, I) K3
@@ -40,10 +44,11 @@ failure raises and exits non-zero:
      its plain version, a library yardstick (torch.matmul + torch.topk,
      which the port never calls) and its bound (bytes at 3.35 TB/s,
      operations at the peak for the input type), with its device time by
-     kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16)
-     and at the CiteULike shape (fp32), each at the bucket its method
-     picks there, K3 at the CiteULike retrieval shape of phase 5 and at
-     the Amazon shape, each of K3's four launches (K1 bound pass, tau,
+     kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16),
+     at the CiteULike shape (fp32) and at VBPR's Tradesy shape (256 x
+     165,906 x 100, bf16), each at the bucket its method picks there, K3
+     at the CiteULike retrieval shape of phase 5, at the Amazon shape and
+     at the Tradesy shape, each of K3's four launches (K1 bound pass, tau,
      filter, final) on its own too.
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
@@ -87,7 +92,8 @@ failure raises and exits non-zero:
      host-fed steps each through Trainer.train, 100 a call (PMF, WRMF, GMF
      on Dataset.stratified_pointwise with pos_ratio 0.2, UCML on
      Dataset.pairwise with margin 0.5; the C++ feeder in both), then 200
-     device-sampled WRMF steps (DevicePointwiseSampler). Per model and
+     device-sampled WRMF steps (DevicePointwiseSampler) on a fresh copy
+     from the same init, held against its own step 0. Per model and
      feed: steps/s, examples/s, device busy ms per call and idle share
      (torch.profiler, one call), val AUC and Recall@50 at step 0 and at
      the end (both must rise), peak memory; UCML's touched rows must lie
@@ -114,8 +120,13 @@ failure raises and exits non-zero:
      Recall@50 above their step-0 values, MLPRec's and NeuMF's numpy
      EvalManager AUC (full mode) too, CDL's reconstruction loss falling,
      WCML's touched rows in the unit ball (1 + 1e-4), 20 steps card
-     against CPU with dropout off (rtol 1e-4, atol 1e-6; fp32, and for
-     CDL fp64, its fp32 difference recorded). NBPR (u, v, b), WCML (2u,
+     against CPU with dropout off from the trained weights and the
+     trainer's lazy_adam moments (rtol 1e-4, atol 1e-6 in fp32; a run
+     outside is rerun in fp64 before the phase stops; CDL's fp32 run is
+     recorded and its fp64 run is the check), beside a control
+     of the same card steps with TF32 matmuls, which must lie outside
+     for at least one model of the phase (`card_vs_cpu_checked`,
+     `check_tf32_controls`). NBPR (u, v, b), WCML (2u,
      v, b - ||v||^2) and CDL (u, item_embed + enc(features), b) then
      serve as phase 7's models do; MLPRec and NeuMF answer 8 requests
      by model.score + torch.topk, their full-catalog score at sampled
@@ -124,15 +135,47 @@ failure raises and exits non-zero:
      and the idle share (torch.profiler over one 10-step call), peak
      memory, seconds by part.
 
+  9. the visual family and the user-feature PMFs at Tradesy width
+     (19,243 users x 165,906 items; 410,000 records, the VBPR paper's
+     Tradesy count, with items from phase 5's long-tailed popularity,
+     split 90/10; item features 165,906 x 4,096 fp32, relu of normals
+     scaled as load_tradesy scales the real ones (/ 32.671101), and 3
+     int32 user category columns of 5 values, all from --seed by numpy; the
+     features copied to the card once and shared by every model): batch
+     1000, lazy_adam lr 1e-3, 300 host-fed steps each through
+     Trainer.train with val eval every 100 through the model's
+     CachedDotProductScorer. VBPR (user 100, item 50, MLP 4,096-50, l2
+     0.001) on the example's feed, Dataset.pairwise(joins=...) with the
+     C++ feeder, one step a call; VisualBPR (dim 50, MLP 4,096-50,
+     dropout 0.2, which a one-layer MLP never applies), VisualCML (margin
+     0.5) and ConcatVisualBPR (dim 100, dim_ve 50) on Dataset.pairwise;
+     VisualPMF (a 1, b 0.01), VisualGMF, UserPMF (user MLP 3-50) and
+     UserVisualPMF on stratified_pointwise(pos_ratio=0.2), 100 steps a
+     call, every model gathering its feature rows on the card. Checks:
+     losses finite, the mean loss of the last 100 steps below the first
+     100's, val AUC and Recall@50 above step 0, VisualCML's touched rows
+     in the unit ball (1 + 1e-4), 20 steps card against CPU from the
+     trained weights and moments in fp32 with the TF32 control, as phase
+     8 holds its models (VisualCML, whose hinge makes a few fp32 weights
+     differ, within max |diff| 1e-4, its control beyond that and its
+     fp64 run within the tolerance). Then each
+     model serves as phase 7's do, VBPR from bf16 tables at D = 100 (its
+     example's), the others from fp32 tables; K1, K2 and K3 count their
+     launches over the phase. Per model: steps/s, examples/s, device
+     busy ms and launches per step, idle share (one 10-step call under
+     the profiler), peak memory, seconds by part.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
-{"legacy": ...} line, a {"kernels": [...]} line (K1, K2, K3; `launches`
-from the serving path for K1/K2 and the training path for K3,
-`launches_zoo` from phase 7, `launches_legacy` from phase 8), and last
+{"legacy": ...} line, a {"visual": ...} line, a {"kernels": [...]} line
+(K1, K2, K3; `launches` from the serving path for K1/K2 and the
+training path for K3, `launches_zoo` from phase 7, `launches_legacy`
+from phase 8, `launches_visual` from phase 9; each with a `tradesy`
+entry whose `launches` count phase 9's VBPR requests), and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}; a phase that did not run prints nothing, and the fields
 it fills stay null. With --out FILE, the full record (every check, latency,
@@ -142,6 +185,7 @@ profile and timing) is also written there as JSON.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -159,12 +203,33 @@ AMAZON = dict(name="amazon", users=99_473, items=450_166, dim=64,
               dtype="bfloat16")
 CITEULIKE = dict(name="citeulike", users=5_551, items=16_980, dim=50,
                  dtype="float32")
+
+
+def port_catalog(name):
+    """`openrec_tpu_torch.data.loaders.<name>` ({"total_users",
+    "total_items"}), read from its file: the module needs only numpy, and
+    the case lists below are built when this script is imported, before
+    torch or the package is. {} where the checkout holds no port (main()
+    then stops before any case runs)."""
+    path = ROOT / "openrec_tpu_torch" / "data" / "loaders.py"
+    if not path.is_file():
+        return {}
+    spec = importlib.util.spec_from_file_location("_port_loaders", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return getattr(module, name)
+
+
+# VBPR's serving shape (examples/vbpr_tradesy.py: dim_user 100, bf16) over
+# the Tradesy catalog
+TRADESY = dict(name="tradesy", dim=100, dtype="bfloat16",
+               items=port_catalog("TRADESY").get("total_items"))
 BATCH, K, REQUESTS = 256, 100, 8
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 9)
+PHASES = range(1, 10)
 
 
 def fail(msg):
@@ -296,6 +361,14 @@ K1K2_CASES = [
     # the buckets `pallas` (K1) and `pallas2` (K2) pick at CiteULike
     ("citeulike K1 shape", BATCH, CITEULIKE["items"], 50, "float32", 2, ""),
     ("citeulike K2 shape", BATCH, CITEULIKE["items"], 50, "float32", 16, ""),
+    # VBPR's D = 100: bf16 rows of 200 bytes (Dp 112, 240-byte smem rows),
+    # every other row 8-byte aligned, at the buckets `pallas` (32) and
+    # `pallas2` (128) pick at Tradesy; fp32 rows of 400 bytes
+    ("tradesy K1 shape", BATCH, TRADESY["items"], 100, "bfloat16", 32, ""),
+    ("tradesy K2 shape", BATCH, TRADESY["items"], 100, "bfloat16", 128, ""),
+    ("bf16 D=100 twin members", 40, 30_000, 100, "bfloat16", 16, "twins"),
+    ("bf16 D=100 view one row in", 50, 9_999, 100, "bfloat16", 8, "row"),
+    ("f32 D=100", 64, 20_000, 100, "float32", 8, ""),
 ]
 
 
@@ -390,6 +463,8 @@ K3_CASES = [
     ("K3 bf16 D=64 I < 8*Kb", 25, 700, 64, "bfloat16", 100, ""),
     ("K3 citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", K, ""),
     ("K3 amazon shape", BATCH, AMAZON["items"], 64, "bfloat16", K, ""),
+    # bf16 rows of 200 bytes: tau's scalar item_score path
+    ("K3 tradesy shape", BATCH, TRADESY["items"], 100, "bfloat16", K, ""),
 ]
 
 
@@ -664,14 +739,22 @@ def citeulike_data(loaders, seed):
     long-tailed, and BPR's unregularised item bias learns that."""
     raw = loaders.synthetic_citeulike(seed=seed)
     rng = np.random.default_rng(seed + 1)
-    items = raw["total_items"]
+    keys = ("train_data", "val_data", "test_data")
+    drawn = long_tail_items(rng, raw["total_items"],
+                            [len(raw[key]) for key in keys])
+    for key, items in zip(keys, drawn):
+        raw[key] = raw[key].copy()
+        raw[key]["item_id"] = items
+    return raw
+
+
+def long_tail_items(rng, items, sizes):
+    """One array of item ids for each of `sizes`, drawn from the
+    long-tailed popularity p(rank r) ~ (r + 10)^-0.9 over one permutation
+    of the catalog that `rng` draws first."""
     p = 1.0 / (np.arange(items) + 10.0) ** 0.9
     order = rng.permutation(items)
-    for key in ("train_data", "val_data", "test_data"):
-        data = raw[key].copy()
-        data["item_id"] = order[rng.choice(items, len(data), p=p / p.sum())]
-        raw[key] = data
-    return raw
+    return [order[rng.choice(items, n, p=p / p.sum())] for n in sizes]
 
 
 def profile_device(torch, fn, calls, wall_per_call_ms):
@@ -1184,16 +1267,19 @@ ZOO = dict(steps=300, k=100, pos_ratio=0.2, margin=0.5, device_steps=200,
 
 def zoo_extractors(torch, name, model):
     """(user, item, bias) extractors whose u.v + b ranks items as the
-    model's score does: u, v, b for PMF, WRMF and NBPR; GMF's own
-    `user_vecs` (u * w); 2u, v and b - ||v||^2 for UCML and WCML, whose
-    -||u - v||^2 + b differs from that by -||u||^2, the same for every
-    item of a user; CDL's own `item_vecs` (item_embed + enc(features)),
-    whose sigmoid keeps the order."""
+    model's score does: the model's own `user_vecs` where it has them
+    (GMF's and VisualGMF's u * w, the user-feature PMFs' user_embed +
+    MLP(features)), else its user table; its own `item_vecs` where it has
+    them (CDL's item_embed + enc(features), the visual family's fused
+    vectors), else its item table; and its bias. UCML, WCML and VisualCML
+    take 2u, v and b - ||v||^2: their -||u - v||^2 + b differs from that
+    by -||u||^2, the same for every item of a user. A sigmoid (PMF-like
+    scores) keeps the order."""
     from openrec_tpu_torch.modules.embedding import embedding_lookup
-    euclid = name in ("UCML", "WCML")
+    euclid = name in ("UCML", "WCML", "VisualCML")
 
     def item(p, i):
-        if name == "CDL":
+        if hasattr(model, "item_vecs"):
             return model.item_vecs(i)
         return embedding_lookup(p["item_embed"], i)
 
@@ -1204,29 +1290,33 @@ def zoo_extractors(torch, name, model):
         return b
 
     def user(p, i):
-        if name == "GMF":
+        if hasattr(model, "user_vecs"):
             return model.user_vecs(i)
         u = embedding_lookup(p["user_embed"], i)
         return 2.0 * u if euclid else u
     return user, item, bias
 
 
-def zoo_serving(torch, port, name, model, dev, rng):
+def zoo_serving(torch, port, name, model, dev, rng,
+                serve_dtype="float32"):
     """8 requests of 256 users, top-100 from the trained tables: through
     the cached scorer ('exact', 'pallas', 'pallas2') and through K3, with
-    the extractors of `zoo_extractors`. Every returned score must be the
-    fp32 score at its id and K3's ids those of torch.topk of model.score
-    but for near-ties, and K1 and K2 must agree with their plain version
-    on every request at the bucket their method picks; recall below its
+    the extractors of `zoo_extractors`, in `serve_dtype` tables (bf16 for
+    VBPR, as its example serves it). Every returned score must be the
+    fp32 score of the served tables at its id; K3's ids those of
+    torch.topk of those scores and, for fp32 tables, of model.score, but
+    for near-ties; and K1 and K2 must agree with their plain version on
+    every request at the bucket their method picks; recall below its
     floor is recorded, not raised (the bucket law promises it in
     expectation only)."""
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
     U, I = model.total_users, model.total_items
+    dt = getattr(torch, serve_dtype)
     params = {k: v.detach() for k, v in model.params().items()}
     user, item, bias = zoo_extractors(torch, name, model)
     scorer = port.CachedDotProductScorer(model, U, I, user, item, bias,
-                                         device=dev)
+                                         serve_dtype=dt, device=dev)
     requests = [torch.as_tensor(rng.integers(0, U, BATCH), device=dev)
                 for _ in range(REQUESTS)]
     answers = {m: [_request(scorer, params, r, m) for r in requests]
@@ -1257,8 +1347,9 @@ def zoo_serving(torch, port, name, model, dev, rng):
 
     # K3 on the same tables, against torch.topk of the model's own score
     with torch.no_grad():
-        table_u = user(params, torch.arange(U, device=dev))
-        table_v = item(params, torch.arange(I, device=dev)).contiguous()
+        table_u = user(params, torch.arange(U, device=dev)).to(dt)
+        table_v = item(params, torch.arange(I, device=dev)).to(
+            dt).contiguous()
         table_b = bias(params, torch.arange(I, device=dev)).contiguous()
     # K1 and K2 against their plain version at the serving path's own
     # buckets; these launches are not the path's, so their counts go back
@@ -1288,6 +1379,8 @@ def zoo_serving(torch, port, name, model, dev, rng):
         want_v, want_i = torch.topk(full, K, dim=1)
         checks.append(check_topk(torch, vals, ids, want_v, want_i, full,
                                  f"zoo {name} K3"))
+        if dt != torch.float32:     # bf16 tables rank apart from the model
+            continue
         with torch.no_grad():
             ms = model.score({"user_id": r})
         ref_v, ref_i = torch.topk(ms, K, dim=1)
@@ -1295,11 +1388,13 @@ def zoo_serving(torch, port, name, model, dev, rng):
         tie = diff & near(ms.gather(1, ids.long()), ref_v)
         bad_model += int((diff & ~tie).sum())
         ties_model += int(tie.sum())
+    held = dt == torch.float32          # against model.score too
     out["k3"] = {"max_abs_err": max(c[0] for c in checks),
                  "id_mismatch_not_tie": sum(c[1] for c in checks),
                  "id_mismatch_tie": sum(c[2] for c in checks),
-                 "vs_model_score_not_tie": bad_model,
-                 "vs_model_score_tie": ties_model}
+                 "vs_model_score_not_tie": bad_model if held else None,
+                 "vs_model_score_tie": ties_model if held else None,
+                 "tables": serve_dtype}
     if out["k3"]["id_mismatch_not_tie"] or bad_model:
         fail(f"zoo {name} K3: id mismatches that are not near-ties "
              f"{out['k3']}")
@@ -1343,9 +1438,10 @@ def zoo_model(torch, port, name, train_ds, val, seed, dev, log_dir, run):
     U, I = store.total_users(), store.total_items()
     D, B, k = TRAIN["dim"], TRAIN["batch"], run["k"]
     kw = {"margin": run["margin"]} if name == "UCML" else {}
-    torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = getattr(port, name)(U, I, D, D, device=dev, generator=gen, **kw)
+    # after the first allocation: before it the allocator has no stats
+    torch.cuda.reset_peak_memory_stats(dev)
     init = {k_: v.detach().clone() for k_, v in model.params().items()}
     log_file = log_dir / f"{name}.jsonl"
     trainer = port.Trainer(model, lr=TRAIN["lr"], seed=seed, device=dev,
@@ -1367,7 +1463,7 @@ def zoo_model(torch, port, name, train_ds, val, seed, dev, log_dir, run):
         fail(f"zoo {name}: the host feed did not take the native sampler")
     batches = [host.sample() for _ in range(k)]
 
-    def feed_run(what, batches_or_sampler, steps, call, start):
+    def feed_run(what, trainer, batches_or_sampler, steps, call, start):
         """`start`: the val metrics the leg must rise above."""
         done = len(log_file.read_text().splitlines()) \
             if log_file.exists() else 0
@@ -1403,7 +1499,7 @@ def zoo_model(torch, port, name, train_ds, val, seed, dev, log_dir, run):
     seconds = {}
     t = time.perf_counter()
     out["host_fed"] = feed_run(
-        "host-fed (native sampler)", feed, run["steps"],
+        "host-fed (native sampler)", trainer, feed, run["steps"],
         lambda: trainer.train_step_multi(batches).cpu(), out["val_step0"])
     seconds["host_fed"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -1416,29 +1512,24 @@ def zoo_model(torch, port, name, train_ds, val, seed, dev, log_dir, run):
         t = time.perf_counter()
         sampler = port.DevicePointwiseSampler(
             store, B, pos_ratio=run["pos_ratio"], device=dev)
-        # the leg starts from the host-fed weights and the profiled call
-        # after them, and must rise above what they score
-        ev = trainer.evaluate(val, at=(50,))
+        # the leg trains a fresh copy from the same init and must rise
+        # above its own step 0: from the host-fed weights, at val's
+        # plateau, 200 more steps move Recall@50 either way (PERF.md)
+        fresh = port.Trainer(
+            getattr(port, name)(U, I, D, D, device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(seed)),
+            lr=TRAIN["lr"], seed=seed, device=dev, log_file=str(log_file))
+        ev = fresh.evaluate(val, at=(50,))
         out["device_sampled"] = feed_run(
-            "device-sampled", sampler, run["device_steps"],
-            lambda: trainer.train_steps_device(sampler, k).cpu(),
+            "device-sampled", fresh, sampler, run["device_steps"],
+            lambda: fresh.train_steps_device(sampler, k).cpu(),
             {"AUC": float(ev["AUC"]), "Recall@50": float(ev["Recall"][0])})
         out["device_sampled"]["membership"] = sampler.membership
         seconds["device_sampled"] = time.perf_counter() - t
     if name == "UCML":
-        norms = {}
-        for table in ("user_embed", "item_embed"):
-            t = model.params()[table].detach()
-            touched = (t != init[table]).any(dim=1)
-            norms[table] = {
-                "touched_rows": int(touched.sum()),
-                "max_touched_norm": torch.linalg.vector_norm(
-                    t[touched], dim=1).max().item()}
-        out["touched_norms"] = norms
-        worst = max(v["max_touched_norm"] for v in norms.values())
-        if worst > 1.0 + 1e-4 or not all(v["touched_rows"]
-                                         for v in norms.values()):
-            fail(f"zoo UCML: touched rows outside the unit ball {norms}")
+        out["touched_norms"] = norms = touched_norms(torch, model, init,
+                                                     "zoo UCML")
     out["max_memory_allocated_gb"] = \
         torch.cuda.max_memory_allocated(dev) / 1e9
     t = time.perf_counter()
@@ -1535,37 +1626,181 @@ def legacy_model(port, name, U, I, features, dev, gen=None, dropout=True):
                                generator=gen, **kw)
 
 
-def legacy_card_vs_cpu(torch, port, name, model, features, batches, dev,
-                       dtype):
-    """The same steps on the card and on the CPU from `model`'s weights in
-    `dtype`, dropout off (the card's and the CPU's generators differ),
-    lazy_adam at phase 5's learning rate (WCML's censor included). Returns
-    the largest differences and whether every parameter and loss agrees
+def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype):
+    """The same steps on the card and on the CPU in `dtype`, from where
+    `trainer` stands: its model's weights and its lazy_adam state (count
+    and moments), carried into both copies. `make(device)` builds a fresh
+    model there with dropout off (the card's and the CPU's generators
+    differ); each copy trains at phase 5's learning rate (a model's
+    `post_step`, such as a censor, included). Carried moments keep Adam's
+    first step out of the check: from zero moments that step is
+    lr * g / (|g| + eps), which turns the summation-order noise of a
+    near-cancelling gradient sum (an MLP's over 1,000 rows) into a step of
+    either sign, whatever the two devices. In fp32 a second card run with
+    TF32 matmuls on is the control. Returns one record per card run: the
+    largest differences and whether every parameter and loss agrees
     within rtol 1e-4, atol 1e-6."""
-    U, I = model.total_users, model.total_items
-    start = {k: v.detach() for k, v in model.params().items()}
-    models = {w: legacy_model(port, name, U, I, features, d,
-                              dropout=False).to(dtype)
-              for w, d in (("card", dev), ("cpu", torch.device("cpu")))}
-    for w, m in models.items():
-        m.load_params({k: v.to(m.item_bias.device, dtype)
-                       for k, v in start.items()})
-    losses = {w: port.Trainer(m, lr=TRAIN["lr"], device=m.item_bias.device)
-              .train_step_multi(batches).cpu() for w, m in models.items()}
-    worst, outside = 0.0, 0
-    for key, p in models["cpu"].params().items():
-        q = models["card"].params()[key].detach().cpu()
-        worst = max(worst, (q - p.detach()).abs().max().item())
-        outside += int((~torch.isclose(q, p.detach(), rtol=1e-4,
-                                       atol=1e-6)).sum())
-    if not torch.isfinite(losses["card"]).all():
-        fail(f"legacy {name}: non-finite losses on the card")
-    return {"steps": len(batches), "dtype": str(dtype).split(".")[-1],
+    start = {k: v.detach() for k, v in trainer.model.params().items()}
+    state = trainer.opt_state
+
+    def run(d, tf32=False):
+        m = make(d).to(dtype)
+        m.load_params({k: v.to(d, dtype) for k, v in start.items()})
+        t = port.Trainer(m, lr=TRAIN["lr"], device=d)
+        t.opt_state = state._replace(
+            count=state.count.to(d),
+            mu={k: v.to(d, dtype, copy=True) for k, v in state.mu.items()},
+            nu={k: v.to(d, dtype, copy=True) for k, v in state.nu.items()})
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            losses = t.train_step_multi(batches).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return ({k: v.detach().cpu() for k, v in m.params().items()},
+                losses)
+
+    cpu, cpu_losses = run(torch.device("cpu"))
+    runs = []
+    for tf32 in (False, True) if dtype == torch.float32 else (False,):
+        card, losses = run(dev, tf32)
+        if not torch.isfinite(losses).all():
+            fail(f"{what}: non-finite losses on the card")
+        worst, outside = 0.0, 0
+        for key, p in cpu.items():
+            worst = max(worst, (card[key] - p).abs().max().item())
+            outside += int((~torch.isclose(card[key], p, rtol=1e-4,
+                                           atol=1e-6)).sum())
+        loss_ok = torch.allclose(losses, cpu_losses, rtol=1e-4, atol=1e-6)
+        runs.append({
+            "steps": len(batches),
+            "dtype": "tf32" if tf32 else str(dtype).split(".")[-1],
             "max_abs_param_diff": worst, "params_outside_tolerance": outside,
-            "max_abs_loss_diff":
-                (losses["card"] - losses["cpu"]).abs().max().item(),
-            "within": outside == 0 and torch.allclose(
-                losses["card"], losses["cpu"], rtol=1e-4, atol=1e-6)}
+            "max_abs_loss_diff": (losses - cpu_losses).abs().max().item(),
+            "losses_within": loss_ok, "within": outside == 0 and loss_ok})
+    return runs
+
+
+def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
+                        limit=None, fp64_check=False):
+    """`card_vs_cpu` in fp32, the type that trains, which must agree (its
+    TF32 control is recorded). An fp32 run outside the tolerance is
+    rerun in fp64 before the phase stops, to tell the card's arithmetic
+    from a fault. With `limit` (VisualCML, whose hinge turns a rounding
+    difference at a triple on its margin into a different step; PERF.md
+    §6) the fp32 parameters need only lie within max |diff| `limit`, its
+    TF32 control must lie beyond it, and an fp64 run must agree within
+    the tolerance. With `fp64_check` (CDL, whose SDAE sums over 1,000
+    rows and 8,000 words put its fp32 run far outside in some runs even
+    from trained moments) the fp32 run is recorded and an fp64 run is
+    the check. Returns the runs."""
+    runs = card_vs_cpu(torch, port, what, make, trainer, batches, dev,
+                       torch.float32)
+    fp32, control = runs
+    if fp64_check or limit is not None or not fp32["within"]:
+        runs += card_vs_cpu(torch, port, what, make, trainer, batches, dev,
+                            torch.float64)
+    ok = runs[-1]["within"] if fp64_check else fp32["within"]
+    if limit is not None:
+        ok = (fp32["losses_within"] and fp32["max_abs_param_diff"] <= limit
+              and runs[-1]["within"])
+        if not control["max_abs_param_diff"] > limit:
+            fail(f"{what}: the TF32 control lies within the fp32 limit "
+                 f"{limit}: {runs}")
+    if not ok:
+        fail(f"{what}: card and CPU disagree after {len(batches)} steps: "
+             f"{runs}")
+    return runs
+
+
+def check_tf32_controls(what, out, names):
+    """The TF32 controls of a phase's card-vs-CPU checks: at least one
+    must lie outside the tolerance, or the check cannot see a
+    lower-precision matmul at that phase's shapes. Returns the models
+    whose control lies outside."""
+    caught = [n for n in names if not out[n]["card_vs_cpu"][1]["within"]]
+    if not caught:
+        fail(f"{what}: no TF32 control lies outside the card-vs-cpu "
+             "tolerance")
+    print(f"{what}: the TF32 control lies outside for {caught}", flush=True)
+    return caught
+
+
+def touched_norms(torch, model, init, what):
+    """Norms of the user and item rows that training moved (away from
+    `init`): each table must have some, all in the unit ball (1 + 1e-4),
+    where a censoring `post_step` puts them."""
+    norms = {}
+    for table in ("user_embed", "item_embed"):
+        tab = model.params()[table].detach()
+        touched = (tab != init[table]).any(dim=1)
+        norms[table] = {
+            "touched_rows": int(touched.sum()),
+            "max_touched_norm": torch.linalg.vector_norm(
+                tab[touched], dim=1).max().item()}
+    if max(v["max_touched_norm"] for v in norms.values()) > 1.0 + 1e-4 \
+            or not all(v["touched_rows"] for v in norms.values()):
+        fail(f"{what}: touched rows outside the unit ball {norms}")
+    return norms
+
+
+def train_host_fed(torch, trainer, feed, val, log_file, run, what,
+                   val_step0, steps_per_call, scorer=None):
+    """`run["steps"]` steps through Trainer.train on `feed`,
+    `steps_per_call` a call, val eval every `run["k"]` (through `scorer`
+    where given); checks every mean loss finite, the last `k` steps' mean
+    below the first's, val AUC and Recall@50 above `val_step0`. Returns
+    the record."""
+    k, steps, B = run["k"], run["steps"], TRAIN["batch"]
+    res = trainer.train(steps, feed, eval_samplers={"val": val},
+                        eval_interval=k, steps_per_call=steps_per_call,
+                        at=(50,), scorer=scorer, verbose=False)
+    recs = [json.loads(x) for x in log_file.read_text().splitlines()]
+    losses = [r_["loss"] for r_ in recs]
+    its = [r_["iters_per_s"] for r_ in recs]
+    steps_per_s = float(np.median(its))
+    if len(recs) != steps // k or not np.all(np.isfinite(losses)):
+        fail(f"{what}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{what}: the mean loss of the last {k} steps {losses[-1]} is "
+             f"not below that of the first {losses[0]}")
+    r = {"steps": steps, "steps_per_call": steps_per_call, "eval_every": k,
+         "steps_per_s_by_call": its, "steps_per_s": steps_per_s,
+         "examples_per_s": steps_per_s * B, "mean_loss_by_call": losses,
+         "val": {"AUC": float(res["val"]["AUC"]),
+                 "Recall@50": float(res["val"]["Recall"][0])}}
+    for metric in ("AUC", "Recall@50"):
+        if not r["val"][metric] > val_step0[metric]:
+            fail(f"{what}: val {metric} did not rise: {val_step0[metric]} "
+                 f"-> {r['val'][metric]}")
+    return r
+
+
+def profile_steps(torch, r, call, n):
+    """One call of `n` steps under the profiler, after the checks: device
+    busy ms, launches and largest items a step, and the idle share of the
+    steps' unprofiled wall time, into the host-fed record `r`."""
+    prof = profile_device(torch, call, 1, n / r["steps_per_s"] * 1e3)
+    r.update({"profiled_steps": n,
+              "device_busy_ms_per_step": prof["device_busy_ms_per_call"] / n,
+              "device_ops_per_step": prof["device_ops_per_call"] / n,
+              "idle_share": prof["idle_share"],
+              "top_device_ms_per_step": {
+                  key: v / n for key, v in
+                  prof["top_device_ms_per_call"].items()}})
+
+
+def host_fed_line(what, out):
+    r, vs = out["host_fed"], out["val_step0"]
+    return (f"{what} host-fed ({out['feed']}): {r['steps']} steps, "
+            f"{r['steps_per_s']:.1f} steps/s, {r['examples_per_s']:.0f} "
+            f"examples/s, device busy {r['device_busy_ms_per_step']:.4f} ms "
+            f"a step ({r['device_ops_per_step']:.0f} launches; one "
+            f"{r['profiled_steps']}-step call), idle {r['idle_share']:.3f}; "
+            "mean loss by call "
+            + ", ".join(f"{x:.4f}" for x in r["mean_loss_by_call"])
+            + f"; val AUC {vs['AUC']:.4f} -> {r['val']['AUC']:.4f}, "
+            f"Recall@50 {vs['Recall@50']:.4f} -> "
+            f"{r['val']['Recall@50']:.4f}")
 
 
 def legacy_eval_manager(torch, port, model, val_store, train_store, seed):
@@ -1621,7 +1856,7 @@ def legacy_run(torch, port, name, train_ds, val_ds, val, features, seed,
     from openrec_tpu_torch.data import samplers
     store = train_ds.store
     U, I = store.total_users(), store.total_items()
-    B, k, steps = TRAIN["batch"], run["k"], run["steps"]
+    B, k = TRAIN["batch"], run["k"]
     seconds, t = {}, time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = legacy_model(port, name, U, I, features, dev, gen)
@@ -1662,29 +1897,10 @@ def legacy_run(torch, port, name, train_ds, val_ds, val, features, seed,
     seconds["setup"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    res = trainer.train(steps, feed, eval_samplers={"val": val},
-                        eval_interval=k, steps_per_call=k, at=(50,),
-                        verbose=False)
-    recs = [json.loads(x) for x in log_file.read_text().splitlines()]
+    out["host_fed"] = r = train_host_fed(
+        torch, trainer, feed, val, log_file, run, f"legacy {name}",
+        out["val_step0"], k)
     seconds["train"] = time.perf_counter() - t
-    losses = [r_["loss"] for r_ in recs]
-    its = [r_["iters_per_s"] for r_ in recs]
-    steps_per_s = float(np.median(its))
-    if len(recs) != steps // k or not np.all(np.isfinite(losses)):
-        fail(f"legacy {name}: losses {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"legacy {name}: the mean loss of the last {k} steps "
-             f"{losses[-1]} is not below that of the first {losses[0]}")
-    out["host_fed"] = r = {
-        "steps": steps, "steps_per_call": k,
-        "steps_per_s_by_call": its, "steps_per_s": steps_per_s,
-        "examples_per_s": steps_per_s * B, "mean_loss_by_call": losses,
-        "val": {"AUC": float(res["val"]["AUC"]),
-                "Recall@50": float(res["val"]["Recall"][0])}}
-    for metric in ("AUC", "Recall@50"):
-        if not r["val"][metric] > out["val_step0"][metric]:
-            fail(f"legacy {name}: val {metric} did not rise: "
-                 f"{out['val_step0'][metric]} -> {r['val'][metric]}")
     t = time.perf_counter()
     if "eval_manager_step0" in out:
         out["eval_manager"] = legacy_eval_manager(
@@ -1704,56 +1920,22 @@ def legacy_run(torch, port, name, train_ds, val_ds, val, features, seed,
     # one more call under the profiler, after the checks of step 300
     t = time.perf_counter()
     n = run["profiled_steps"]
-    prof = profile_device(torch, lambda: trainer.train_step_multi(
-        batches[:n]).cpu(), 1, n / steps_per_s * 1e3)
-    r.update({"profiled_steps": n,
-              "device_busy_ms_per_step": prof["device_busy_ms_per_call"] / n,
-              "device_ops_per_step": prof["device_ops_per_call"] / n,
-              "idle_share": prof["idle_share"],
-              "top_device_ms_per_step": {
-                  key: v / n for key, v in
-                  prof["top_device_ms_per_call"].items()}})
+    profile_steps(torch, r, lambda: trainer.train_step_multi(
+        batches[:n]).cpu(), n)
     seconds["profile"] = time.perf_counter() - t
-    print(f"legacy {name} host-fed ({out['feed']}): {steps} steps, "
-          f"{steps_per_s:.1f} steps/s, {steps_per_s * B:.0f} examples/s, "
-          f"device busy {r['device_busy_ms_per_step']:.4f} ms a step "
-          f"({r['device_ops_per_step']:.0f} launches; one {n}-step call), "
-          f"idle {r['idle_share']:.3f}; mean loss by call "
-          + ", ".join(f"{x:.4f}" for x in losses)
-          + f"; val AUC {out['val_step0']['AUC']:.4f} -> "
-          f"{r['val']['AUC']:.4f}, Recall@50 "
-          f"{out['val_step0']['Recall@50']:.4f} -> "
-          f"{r['val']['Recall@50']:.4f}", flush=True)
+    print(host_fed_line(f"legacy {name}", out), flush=True)
     if name == "WCML":
-        norms = {}
-        for table in ("user_embed", "item_embed"):
-            tab = model.params()[table].detach()
-            touched = (tab != init[table]).any(dim=1)
-            norms[table] = {
-                "touched_rows": int(touched.sum()),
-                "max_touched_norm": torch.linalg.vector_norm(
-                    tab[touched], dim=1).max().item()}
-        out["touched_norms"] = norms
-        if max(v["max_touched_norm"] for v in norms.values()) > 1.0 + 1e-4 \
-                or not all(v["touched_rows"] for v in norms.values()):
-            fail(f"legacy WCML: touched rows outside the unit ball {norms}")
+        out["touched_norms"] = norms = touched_norms(
+            torch, model, init, "legacy WCML")
     out["max_memory_allocated_gb"] = \
         torch.cuda.max_memory_allocated(dev) / 1e9
 
-    # Card against CPU in fp32, the type that trains. CDL's fp32 run is
-    # recorded and its fp64 run is the check: in fp32 Adam's first step,
-    # lr * g / (|g| + eps), turns the summation-order noise of its
-    # near-cancelling SDAE gradient sums (over 1,000 rows and 8,000
-    # words) into step differences beyond atol 1e-6, whatever the two
-    # devices, so only fp64 holds the card to the CPU's arithmetic.
     t = time.perf_counter()
-    cmp = [torch.float32] + ([torch.float64] if name == "CDL" else [])
-    out["card_vs_cpu"] = [legacy_card_vs_cpu(
-        torch, port, name, model, features,
-        batches[:run["card_vs_cpu_steps"]], dev, dtype) for dtype in cmp]
-    if not out["card_vs_cpu"][-1]["within"]:
-        fail(f"legacy {name}: card and CPU disagree after "
-             f"{run['card_vs_cpu_steps']} steps: {out['card_vs_cpu'][-1]}")
+    out["card_vs_cpu"] = card_vs_cpu_checked(
+        torch, port, f"legacy {name}",
+        lambda d: legacy_model(port, name, U, I, features, d, dropout=False),
+        trainer, batches[:run["card_vs_cpu_steps"]], dev,
+        fp64_check=name == "CDL")
     seconds["card_vs_cpu"] = time.perf_counter() - t
     t = time.perf_counter()
     rng = np.random.default_rng(seed + 5)
@@ -1834,6 +2016,238 @@ def phase_legacy(torch, port, seed, dev, run=LEGACY):
     out["launches"] = launches
     if launches != want:
         fail(f"legacy: kernel launches {launches}, the path made {want}")
+    out["tf32_caught"] = check_tf32_controls("legacy", out, LEGACY_MODELS)
+    return out
+
+
+# ------------------------------------------------------------ phase 9
+
+VISUAL_MODELS = ("VBPR", "VisualBPR", "VisualCML", "VisualPMF", "VisualGMF",
+                 "ConcatVisualBPR", "UserPMF", "UserVisualPMF")
+VISUAL_POINTWISE = ("VisualPMF", "VisualGMF", "UserPMF", "UserVisualPMF")
+# records: the VBPR paper's Tradesy feedback count; features: its CNN
+# width; 3 category columns of 5 values a user, the layout (and range) of
+# the Amazon-book fixture's user_features_categories.npy
+# fp32_limit: VisualCML's card-vs-CPU limit, above the largest fp32
+# difference of the runs whose fp64 run agreed (2.3e-5) and below its
+# TF32 control's (>= 5.4e-4; PERF.md §6)
+VISUAL = dict(records=410_000, features=4096, categories=5, steps=300,
+              k=100, pos_ratio=0.2, card_vs_cpu_steps=20, profiled_steps=10,
+              eval_batch=1000, fp32_limit={"VisualCML": 1e-4})
+
+
+def tradesy_data(loaders, seed, run=VISUAL):
+    """Tradesy's width (19,243 users x 165,906 items) on synthetic data:
+    `run["records"]` records of uniform users with items drawn from the
+    long-tailed popularity of `citeulike_data`, split 90/10; item
+    features [items, 4096] fp32, relu of normals (non-negative, as a
+    CNN's outputs) divided by `load_tradesy`'s 32.671101, as the loader
+    hands the real features to a model; int32 user categories
+    [users, 3]. All from the seed by numpy. (Unscaled, 4,096 features
+    of mean 0.4 let Adam's even steps on a visual MLP column move a
+    projection by ~1.6 a step: UserVisualPMF's scores saturate its
+    sigmoid within 100 steps.)"""
+    U, I = loaders.TRADESY["total_users"], loaders.TRADESY["total_items"]
+    n = run["records"]
+    data = loaders.synthetic_interactions(U, I, n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    data["item_id"] = long_tail_items(rng, I, [n])[0]
+    feats = rng.standard_normal((I, run["features"]), dtype=np.float32)
+    np.maximum(feats, 0.0, out=feats)
+    feats /= np.float32(32.671101)
+    cut = n - n // 10
+    return {"total_users": U, "total_items": I, "train_data": data[:cut],
+            "val_data": data[cut:], "item_features": feats,
+            "user_features": rng.integers(0, run["categories"], (U, 3))
+            .astype(np.int32)}
+
+
+def visual_model(port, name, U, I, feats, cats, dev, gen=None):
+    """One of phase 9's models at its configuration. VisualBPR's dropout
+    0.2 follows hidden layers only, as in the JAX package, so its
+    one-layer MLP never drops."""
+    kw = {"device": dev, "generator": gen}
+    if name == "VBPR":
+        return port.VBPR(U, I, 100, 50, item_features=feats,
+                         l2_weight=0.001, **kw)
+    if name == "ConcatVisualBPR":
+        return port.ConcatVisualBPR(U, I, 100, 50, item_features=feats, **kw)
+    if name == "UserPMF":
+        return port.UserPMF(U, I, 50, user_features=cats, **kw)
+    if name == "UserVisualPMF":
+        return port.UserVisualPMF(U, I, 50, user_features=cats,
+                                  item_features=feats, **kw)
+    kw.update({"VisualBPR": {"dropout": 0.2}, "VisualCML": {"margin": 0.5},
+               "VisualPMF": {"a": 1.0, "b": 0.01}}.get(name, {}))
+    return getattr(port, name)(U, I, 50, item_features=feats, **kw)
+
+
+def visual_run(torch, port, name, data, train_ds, val, feats_card, seed, dev,
+               log_dir, run):
+    """One model of phase 9: host-fed training through Trainer.train with
+    val eval through its CachedDotProductScorer, checks, card against
+    CPU, serving. Returns the record."""
+    from openrec_tpu_torch.data import samplers
+    store = train_ds.store
+    U, I = store.total_users(), store.total_items()
+    B, k = TRAIN["batch"], run["k"]
+    seconds, t = {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = visual_model(port, name, U, I, feats_card, data["user_features"],
+                         dev, gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    init = {k_: v.detach().clone() for k_, v in model.params().items()}
+    log_file = log_dir / f"{name}.jsonl"
+    trainer = port.Trainer(model, lr=TRAIN["lr"], seed=seed, device=dev,
+                           log_file=str(log_file))
+    serve_dtype = "bfloat16" if name == "VBPR" else "float32"
+    scorer = port.CachedDotProductScorer(
+        model, U, I, *zoo_extractors(torch, name, model),
+        serve_dtype=getattr(torch, serve_dtype), device=dev)
+    ev0 = trainer.evaluate(val, at=(50,), scorer=scorer)
+    out = {"config": {"users": U, "items": I, "batch": B, "lr": TRAIN["lr"],
+                      "optimizer": "lazy_adam", "serve_dtype": serve_dtype,
+                      "params": {k_: list(v.shape) for k_, v in init.items()}},
+           "val_step0": {"AUC": float(ev0["AUC"]),
+                         "Recall@50": float(ev0["Recall"][0])}}
+    # VBPR: the example's feed, feature rows joined on the host and one
+    # step a call; the others gather their rows on the card
+    call_k = k
+    if name == "VBPR":
+        joins = [("p_item_id", data["item_features"], "p_item_vfeature"),
+                 ("n_item_id", data["item_features"], "n_item_vfeature")]
+        feed = train_ds.pairwise(B, num_parallel_calls=2, joins=joins)
+        host = samplers.FeatureJoinedSampler(
+            samplers.PairwiseSampler(store, B, seed=seed + 7), joins)
+        native = feed._sampler.base.use_native and host.base.use_native
+        out["feed"] = "pairwise(joins=...) (native sampler), 2 workers"
+        call_k = 1
+    elif name in VISUAL_POINTWISE:
+        feed = train_ds.stratified_pointwise(B, pos_ratio=run["pos_ratio"],
+                                             num_parallel_calls=2)
+        host = samplers.StratifiedPointwiseSampler(
+            store, B, pos_ratio=run["pos_ratio"], seed=seed + 7)
+        native = feed._sampler.use_native and host.use_native
+        out["feed"] = "stratified_pointwise (native sampler), 2 workers"
+    else:
+        feed = train_ds.pairwise(B, num_parallel_calls=2)
+        host = samplers.PairwiseSampler(store, B, seed=seed + 7)
+        native = feed._sampler.use_native and host.use_native
+        out["feed"] = "pairwise (native sampler), 2 workers"
+    if not native:
+        fail(f"visual {name}: the host feed did not take the native sampler")
+    batches = [host.sample() for _ in range(run["card_vs_cpu_steps"])]
+    seconds["setup"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out["host_fed"] = r = train_host_fed(
+        torch, trainer, feed, val, log_file, run, f"visual {name}",
+        out["val_step0"], call_k, scorer)
+    seconds["train"] = time.perf_counter() - t
+    # one more call under the profiler, after the checks of step 300: VBPR
+    # profiles 10 of its one-step calls on joined batches
+    t = time.perf_counter()
+    n = run["profiled_steps"]
+    if call_k == 1:
+        def call():
+            return [trainer.train_step(b)[0] for b in batches[:n]][-1].cpu()
+    else:
+        def call():
+            return trainer.train_step_multi(batches[:n]).cpu()
+    profile_steps(torch, r, call, n)
+    seconds["profile"] = time.perf_counter() - t
+    print(host_fed_line(f"visual {name}", out), flush=True)
+    if name == "VisualCML":
+        out["touched_norms"] = norms = touched_norms(
+            torch, model, init, "visual VisualCML")
+    out["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+
+    t = time.perf_counter()
+
+    def make(d):
+        feats = feats_card if d.type == "cuda" else data["item_features"]
+        return visual_model(port, name, U, I, feats, data["user_features"],
+                            d)
+    out["card_vs_cpu"] = card_vs_cpu_checked(
+        torch, port, f"visual {name}", make, trainer, batches, dev,
+        run["fp32_limit"].get(name))
+    seconds["card_vs_cpu"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["serving"] = sv = zoo_serving(torch, port, name, model, dev,
+                                      np.random.default_rng(seed + 5),
+                                      serve_dtype=serve_dtype)
+    seconds["serving"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    extra = ""
+    if name == "VisualCML":
+        extra = (f"; touched row norms max "
+                 f"{max(v['max_touched_norm'] for v in norms.values()):.6f}")
+    print(f"visual {name}: card-vs-cpu {len(batches)} steps, "
+          + ", ".join(f"{c['dtype']} params max |diff| "
+                      f"{c['max_abs_param_diff']:.3g} ("
+                      f"{c['params_outside_tolerance']} outside)"
+                      for c in out["card_vs_cpu"]) + "; peak "
+          f"{out['max_memory_allocated_gb']:.3f} GB{extra}; serving "
+          f"({serve_dtype} tables) recall "
+          + json.dumps(sv["recall_vs_exact"])
+          + f", scores max |err| {sv['score_max_abs_err']:.3g}, K1/K2 vs "
+          "plain " + json.dumps(sv["k1k2_vs_plain"]) + ", K3 "
+          + json.dumps(sv["k3"]) + "; seconds "
+          + json.dumps({k_: round(v, 2) for k_, v in seconds.items()}),
+          flush=True)
+    for m, rec in sv["recall_below_floor"].items():
+        print(f"visual {name} finding: {m} recall {rec:.6f} is below its "
+              f"floor {TARGETS[m] - 0.01:.3f} on trained tables", flush=True)
+    return out
+
+
+def phase_visual(torch, port, seed, dev, run=VISUAL):
+    """Phase 9: the visual family and the user-feature PMFs at Tradesy
+    width, one copy of the item features on the card shared by all
+    eight; each model's tables then served through K1/K2/K3 (VBPR's in
+    bf16 at D = 100). The kernels' counters are set to 0 here and read
+    at the end."""
+    from openrec_tpu_torch.data import Dataset, loaders
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
+                "K3": tk.fused_score_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    data = tradesy_data(loaders, seed, run)
+    U, I = data["total_users"], data["total_items"]
+    train_ds = Dataset(data["train_data"], U, I, seed=seed)
+    val = Dataset(data["val_data"], U, I, seed=seed).evaluation(
+        run["eval_batch"], excl_datasets=[train_ds], device_masks=True)
+    feats_card = torch.from_numpy(data["item_features"]).to(dev)
+    out = {"data": {"users": U, "items": I,
+                    "train_records": len(data["train_data"]),
+                    "val_records": len(data["val_data"]),
+                    "item_features": list(data["item_features"].shape),
+                    "user_features": list(data["user_features"].shape)},
+           "setup_s": time.perf_counter() - t}
+    print(f"visual data: {out['data']} in {out['setup_s']:.1f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as log_dir:
+        for name in VISUAL_MODELS:
+            out[name] = visual_run(torch, port, name, data, train_ds, val,
+                                   feats_card, seed, dev, Path(log_dir), run)
+            torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = {"K1": "pallas", "K2": "pallas2", "K3": "k3"}
+    want = {kname: sum(out[n]["serving"]["calls"][m] for n in VISUAL_MODELS)
+            for kname, m in calls.items()}
+    out["launches"] = launches
+    # VBPR's bf16 tables at D = 100: the Tradesy entries' shape
+    out["launches_tradesy_bf16"] = {
+        kname: out["VBPR"]["serving"]["calls"][m]
+        for kname, m in calls.items()}
+    if launches != want:
+        fail(f"visual: kernel launches {launches}, the path made {want}")
+    out["tf32_caught"] = check_tf32_controls("visual", out, VISUAL_MODELS)
     return out
 
 
@@ -1901,10 +2315,10 @@ def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
 def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     """K1's and K2's entries of the kernels line: their numbers at the
     Amazon serving shape (bf16, the tensor-core route), with the
-    CiteULike shape (fp32, the CUDA-core route) beside them, each at the
-    bucket `bucket_score_topk` picks there for its method's target. The
-    CiteULike entry's `max_abs_err` is phase 2's at that shape and
-    bucket."""
+    CiteULike shape (fp32, the CUDA-core route) and VBPR's Tradesy shape
+    (bf16, D = 100) beside them, each at the bucket `bucket_score_topk`
+    picks there for its method's target. The CiteULike and Tradesy
+    entries' `max_abs_err` is phase 2's at that shape and bucket."""
     def inputs(I, D, dtype):
         u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
         v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05)
@@ -1913,6 +2327,7 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
 
     amazon = inputs(AMAZON["items"], AMAZON["dim"], torch.bfloat16)
     citeulike = inputs(CITEULIKE["items"], CITEULIKE["dim"], torch.float32)
+    tradesy = inputs(TRADESY["items"], TRADESY["dim"], torch.bfloat16)
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
@@ -1944,9 +2359,18 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              and c["bucket"] == entry["citeulike"]["shape"]["bucket"]),
             None)
         entry["citeulike"]["launches"] = entry["launches_zoo"] = \
-            entry["launches_legacy"] = None
+            entry["launches_legacy"] = entry["launches_visual"] = None
+        entry["tradesy"] = time_bucket_kernel(torch, bt, *tradesy, top2,
+                                              bucket_at(TRADESY))
+        entry["tradesy"]["variant"] = "mma-bf16"
+        entry["tradesy"]["max_abs_err"] = next(
+            (c["max_abs_err"] for c in compare_report
+             if c["kernel"] == kname and c["case"].startswith("tradesy")
+             and c["bucket"] == entry["tradesy"]["shape"]["bucket"]), None)
+        entry["tradesy"]["launches"] = None
         entries.append(entry)
-        for name, t in (("amazon", entry), ("citeulike", entry["citeulike"])):
+        for name, t in (("amazon", entry), ("citeulike", entry["citeulike"]),
+                        ("tradesy", entry["tradesy"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
@@ -2014,10 +2438,12 @@ def time_k3(torch, tk, gen, dev, B, I, D, dtype):
                       **plan._asdict()}}
 
 
-def phase_time_k3(torch, tk, gen, dev, err, amazon_launches):
+def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
+                  compare_report):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
-    shape (bf16) beside them. `launches` is filled in by phase 5;
+    shape (bf16) and VBPR's Tradesy shape (bf16, D = 100) beside them.
+    `launches` is filled in by phase 5, the Tradesy entry's by phase 9;
     `amazon_launches` is K3's count over phase 3's Amazon requests."""
     entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
              "route": "cuda",
@@ -2025,13 +2451,21 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches):
              "replaces": "openrec_tpu/ops/topk.py:58",
              "replaces_function": "_fused_topk_kernel",
              "launches": None, "launches_zoo": None,
-             "launches_legacy": None, "max_abs_err": err}
+             "launches_legacy": None, "launches_visual": None,
+             "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
                               AMAZON["dim"], "bfloat16")
     entry["amazon"]["launches"] = amazon_launches
-    for name, t in (("citeulike", entry), ("amazon", entry["amazon"])):
+    entry["tradesy"] = time_k3(torch, tk, gen, dev, BATCH, TRADESY["items"],
+                               TRADESY["dim"], "bfloat16")
+    entry["tradesy"]["launches"] = None
+    entry["tradesy"]["max_abs_err"] = next(
+        (c["max_abs_err"] for c in compare_report
+         if c["case"] == "K3 tradesy shape"), None)
+    for name, t in (("citeulike", entry), ("amazon", entry["amazon"]),
+                    ("tradesy", entry["tradesy"])):
         print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
               f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
               "stages " + json.dumps(t["stages_ms"]), flush=True)
@@ -2096,7 +2530,8 @@ def main(argv=None):
 
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
-    serve, kernels, train, dlrm, zoo, legacy = {}, [], None, None, None, None
+    serve, kernels = {}, []
+    train = dlrm = zoo = legacy = visual = None
 
     # phase 2
     if 2 in phases:
@@ -2118,7 +2553,7 @@ def main(argv=None):
         kernels = phase_time(torch, bt, gen, dev, errs, launches,
                              compare_report)
         kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
-                                     launches["K3"]))
+                                     launches["K3"], compare_report))
         torch.cuda.empty_cache()
 
     # phase 5
@@ -2154,9 +2589,22 @@ def main(argv=None):
         legacy["phase_s"] = time.perf_counter() - t8
         for entry in kernels:
             entry["launches_legacy"] = legacy["launches"][entry["name"][:2]]
+        torch.cuda.empty_cache()
+
+    # phase 9
+    if 9 in phases:
+        t9 = time.perf_counter()
+        visual = phase_visual(torch, port, args.seed, dev)
+        visual["phase_s"] = time.perf_counter() - t9
+        for entry in kernels:
+            entry["launches_visual"] = visual["launches"][entry["name"][:2]]
+            entry["tradesy"]["launches"] = \
+                visual["launches_tradesy_bf16"][entry["name"][:2]]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
+             else "")
+          + (f"phase 9 (visual): {visual['phase_s']:.1f} s; " if visual
              else "")
           + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
@@ -2166,7 +2614,7 @@ def main(argv=None):
             {"card": smi, "phases": sorted(phases), "build_s": build_s,
              "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
-             "dlrm": dlrm, "zoo": zoo, "legacy": legacy},
+             "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual},
             indent=1))
     if serve:
         print(json.dumps({"requests": {name: {
@@ -2218,6 +2666,7 @@ def main(argv=None):
     if legacy:
         print(json.dumps({"legacy": {
             "launches": legacy["launches"], "features": legacy["features"],
+            "tf32_caught": legacy["tf32_caught"],
             "phase_s": legacy["phase_s"], "setup_s": legacy["setup_s"]} | {
             name: {"host_fed": {m: legacy[name]["host_fed"][m] for m in (
                 "steps_per_s", "examples_per_s", "device_busy_ms_per_step",
@@ -2235,6 +2684,28 @@ def main(argv=None):
                 "eval_manager_step0", "eval_manager", "reconst_loss",
                 "touched_norms") if m in legacy[name]}
             for name in LEGACY_MODELS}}))
+    if visual:
+        print(json.dumps({"visual": {
+            m: visual[m] for m in ("launches", "launches_tradesy_bf16",
+                                   "tf32_caught", "data", "phase_s",
+                                   "setup_s")} | {
+            name: {"feed": visual[name]["feed"],
+                   "host_fed": {m: visual[name]["host_fed"][m] for m in (
+                       "steps_per_s", "examples_per_s",
+                       "device_busy_ms_per_step", "device_ops_per_step",
+                       "idle_share", "mean_loss_by_call", "val")},
+                   "val_step0": visual[name]["val_step0"],
+                   "card_vs_cpu": {c["dtype"]: c["max_abs_param_diff"]
+                                   for c in visual[name]["card_vs_cpu"]},
+                   "max_memory_allocated_gb":
+                       visual[name]["max_memory_allocated_gb"],
+                   "serving": {m: visual[name]["serving"][m] for m in (
+                       "recall_vs_exact", "score_max_abs_err",
+                       "k1k2_vs_plain", "k3", "calls")},
+                   "seconds": visual[name]["seconds"]}
+            | ({"touched_norms": visual[name]["touched_norms"]}
+               if "touched_norms" in visual[name] else {})
+            for name in VISUAL_MODELS}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

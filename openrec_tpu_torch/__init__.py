@@ -42,6 +42,11 @@ And the multi-negative and content models: NBPR and WCML (with
 MLPRec and NeuMF (the NCF family, dropout drawn from the Trainer's
 generator), CDL with its `SDAE`, and the numpy evaluators
 (`metrics.numpy_eval`, `EvalManager`).
+
+And the visual family and the user-feature PMFs: VBPR, VisualBPR,
+VisualCML, VisualPMF, VisualGMF, ConcatVisualBPR, UserPMF and
+UserVisualPMF, with `FeatureJoinedSampler` (`Dataset.pairwise(joins=)`),
+the fusions and the Tradesy / Amazon-book loaders.
 """
 
 __version__ = "0.1.0"
@@ -50,10 +55,10 @@ from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.convert import (
     opt_state_from_jax, opt_state_to_numpy, params_from_jax, params_to_numpy,
     sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
-from openrec_tpu_torch.models import (BPR, CDL, CML, DLRM, GMF, NBPR, PMF,
-                                      UCML, WCML, WRMF, FactorRecommender,
-                                      MLPRec, NeuMF, Recommender,
-                                      criteo_dlrm)
+from openrec_tpu_torch.models import (
+    BPR, CDL, CML, DLRM, GMF, NBPR, PMF, UCML, VBPR, WCML, WRMF,
+    ConcatVisualBPR, FactorRecommender, MLPRec, NeuMF, Recommender, UserPMF,
+    UserVisualPMF, VisualBPR, VisualCML, VisualGMF, VisualPMF, criteo_dlrm)
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
@@ -63,11 +68,12 @@ from openrec_tpu_torch.metrics import (
     numpy_eval)
 from openrec_tpu_torch.serving import CachedDotProductScorer
 from openrec_tpu_torch.modules import (
-    MLP, SDAE, censor_max_norm, censor_norm, embedding_init,
-    embedding_lookup, losses, second_order_interaction)
+    MLP, SDAE, average_fusion, censor_max_norm, censor_norm, concat_fusion,
+    embedding_init, embedding_lookup, losses, second_order_interaction)
 from openrec_tpu_torch.data import (
     Dataset, DevicePairwiseSampler, DevicePointwiseSampler,
-    EvaluationSampler, InteractionStore, NPairwiseSampler, PairwiseSampler,
+    EvaluationSampler, FeatureJoinedSampler, InteractionStore,
+    NPairwiseSampler, PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
     StratifiedPointwiseSampler)
 from openrec_tpu_torch.training import (Trainer, adam, keras_adam,

@@ -5,7 +5,7 @@ from openrec_tpu_torch.data.pipeline import (
 from openrec_tpu_torch.data.device_sampler import (DevicePairwiseSampler,
                                                   DevicePointwiseSampler)
 from openrec_tpu_torch.data.samplers import (
-    BatchSampler, EndOfData, EvaluationSampler, NPairwiseSampler,
-    PairwiseSampler, PerPosStratifiedPointwiseSampler,
+    BatchSampler, EndOfData, EvaluationSampler, FeatureJoinedSampler,
+    NPairwiseSampler, PairwiseSampler, PerPosStratifiedPointwiseSampler,
     RandomPointwiseSampler, StratifiedPointwiseSampler)
 from openrec_tpu_torch.data import loaders

@@ -4,7 +4,8 @@ Counterpart of `openrec_tpu/data/dataset.py`: `Dataset.__init__` builds an
 `InteractionStore`; `pairwise`, `stratified_pointwise`,
 `per_pos_stratified_pointwise` and `random_pointwise` each return a
 `Prefetcher` over a sampler seeded with the dataset's seed (each worker
-folds its id into it), `n_pairwise` one over K negatives per positive
+folds its id into it; `pairwise(joins=...)` wraps its sampler in a
+`FeatureJoinedSampler`), `n_pairwise` one over K negatives per positive
 (NBPR, WCML), and `evaluation` an `EvaluationSampler`. The explicit and
 temporal strategies of the JAX package come with the models that use
 them.
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 from openrec_tpu_torch.data.pipeline import Prefetcher
 from openrec_tpu_torch.data.samplers import (
-    EvaluationSampler, NPairwiseSampler, PairwiseSampler,
+    EvaluationSampler, FeatureJoinedSampler, NPairwiseSampler,
+    PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
     StratifiedPointwiseSampler)
 from openrec_tpu_torch.data.store import InteractionStore
@@ -33,12 +35,16 @@ class Dataset:
         self._seed = seed if seed is not None else 0
 
     def pairwise(self, batch_size, num_parallel_calls=1, take=None,
-                 chronological=False):
+                 joins=(), chronological=False):
         """Infinite (user, pos, neg) batches from `num_parallel_calls`
-        prefetch threads. chronological=True: one unshuffled sequential
-        epoch in raw-data order (finite; forces 1 worker)."""
+        prefetch threads. joins: (id_key, features, out_key) triples,
+        e.g. ("p_item_id", feats, "p_item_vfeature"), joined into every
+        batch (`FeatureJoinedSampler`). chronological=True: one unshuffled
+        sequential epoch in raw-data order (finite; forces 1 worker)."""
         s = PairwiseSampler(self.store, batch_size, seed=self._seed,
                             chronological=chronological)
+        if joins:
+            s = FeatureJoinedSampler(s, joins)
         if chronological:
             num_parallel_calls = 1
         return Prefetcher(s, num_workers=num_parallel_calls, take=take)

@@ -1,9 +1,16 @@
-"""Dataset loaders: CiteULike and Criteo, their file layouts and their
-synthetic stand-ins.
+"""Dataset loaders: CiteULike, Tradesy, Amazon-book and Criteo, their file
+layouts and their synthetic stand-ins.
 
-Counterpart of `openrec_tpu/data/loaders.py:27-41, 101-207`:
+Counterpart of `openrec_tpu/data/loaders.py:22-50, 71-207`:
 `load_citeulike` reads `user_data_{train,val,test}.npy` structured arrays
 (user_id/item_id fields) from `<dataset_folder>/citeulike/`;
+`load_tradesy` the same from `<dataset_folder>/tradesy/` plus
+`item_features.npy` divided by 32.671101 (the reference's normalisation,
+float32 stays float32); `load_amazon_book` the same from
+`<dataset_folder>/amazon/` plus a LAZY float32 memmap of the item
+features (`book_features_update.mem`, shape (total_items, 4096) unless
+`feature_shape` says otherwise) and the int32 user categories
+(`user_features_categories.npy`);
 `synthetic_citeulike` draws the same shape with numpy (5,551 users x
 16,980 items, 204,057 records split 80/10/10). `load_criteo` reads
 `<dataset_folder>/criteo/kaggle_processed.npz` (X_int [N, 13] raw counts,
@@ -11,8 +18,8 @@ X_cat [N, 26], y, counts) and splits it 6/7 train, 1/14 val, 1/14 test
 with the dense features through log(x + 1); `write_synthetic_criteo_npz`
 writes that file's layout and `synthetic_criteo` draws the split arrays
 directly, with labels a model can learn. Every function is bit-identical
-to the JAX package's for the same seed. The other datasets come with the
-models that use them.
+to the JAX package's for the same seed. LastFM comes with the sequence
+models.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import os
 import numpy as np
 
 CITEULIKE = {"total_users": 5551, "total_items": 16980}
+TRADESY = {"total_users": 19243, "total_items": 165906}
+AMAZON_BOOK = {"total_users": 99473, "total_items": 450166}
 
 
 def _load_split(folder, name):
@@ -34,6 +43,34 @@ def _load_split(folder, name):
 def load_citeulike(dataset_folder="dataset/"):
     raw = dict(CITEULIKE)
     raw.update(_load_split(dataset_folder, "citeulike"))
+    return raw
+
+
+def load_tradesy(dataset_folder="dataset/"):
+    raw = dict(TRADESY)
+    raw.update(_load_split(dataset_folder, "tradesy"))
+    raw["item_features"] = np.load(
+        os.path.join(dataset_folder, "tradesy", "item_features.npy")
+    ) / 32.671101          # the reference's normalisation (dataloader.py:40)
+    return raw
+
+
+def load_amazon_book(dataset_folder="dataset/", feature_shape=None):
+    """The reference's layout (tf2_examples/dataloader.py:4-17). The memmap
+    has no header, so `feature_shape` overrides (total_items, 4096) for
+    files of another size. It stays lazy: joins and batched extraction
+    read it row by row, so only the pages they touch are read (the
+    reference copies all 7.4 GB into host memory)."""
+    raw = dict(AMAZON_BOOK)
+    raw.update(_load_split(dataset_folder, "amazon"))
+    if feature_shape is None:
+        feature_shape = (raw["total_items"], 4096)
+    raw["item_features"] = np.memmap(
+        os.path.join(dataset_folder, "amazon", "book_features_update.mem"),
+        dtype=np.float32, mode="r", shape=tuple(feature_shape))
+    raw["user_features"] = np.load(
+        os.path.join(dataset_folder, "amazon",
+                     "user_features_categories.npy"))
     return raw
 
 

@@ -7,12 +7,14 @@ Counterpart of `openrec_tpu/data/samplers.py:34-341, 458-591`: the base
 `RandomPointwiseSampler`: user, item, 0/1 label) and the full-catalog
 `EvaluationSampler` (mask batches, or -1-padded id lists with
 `device_masks=True`), and `NPairwiseSampler` (user, positive, K
-negatives: `samplers.py:225-238`). The same seed gives bit-identical batches to the
+negatives: `samplers.py:225-238`), and `FeatureJoinedSampler`
+(`samplers.py:432-455`: a base sampler's batches with feature rows joined
+by id). The same seed gives bit-identical batches to the
 JAX package on every path, the numpy paths (`use_native=False`) and the
 C++ feeder (`openrec_tpu_torch/native/`, the default of `PairwiseSampler`
 and `StratifiedPointwiseSampler` whenever it builds, as in the JAX
-package). The explicit, temporal and feature-joined samplers come with
-the models that use them.
+package). The explicit and temporal samplers come with the models that
+use them.
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -323,6 +325,34 @@ class RandomPointwiseSampler(BatchSampler):
         labels = self.store.is_positive(users, items).astype(np.float32)
         return {"user_id": users.astype(np.int32),
                 "item_id": items.astype(np.int32), "label": labels}
+
+
+class FeatureJoinedSampler(BatchSampler):
+    """The base sampler's batches, each with `batch[out_key] =
+    feats[batch[id_key]]` added for every (id_key, feats, out_key) of
+    `joins` (VBPR's item features, as the reference's VBPRPairwiseSampler
+    joins them). `feats` may be any array numpy indexes by rows, a memmap
+    too, which is then read only at the batch's rows.
+
+    Like the JAX package's, it has no `seed` of its own: a `Prefetcher`
+    seeds its workers (0, worker id), whatever the base's seed. Where the
+    base is chronological, its end ends this stream too (the JAX
+    package's `__iter__` lets `EndOfData` escape into the worker)."""
+
+    def __init__(self, base: BatchSampler, joins):
+        self.base = base
+        self.store = base.store
+        self.batch_size = base.batch_size
+        self.joins = joins
+
+    def sample(self):
+        batch = self.base.sample()
+        for id_key, feats, out_key in self.joins:
+            batch[out_key] = np.asarray(feats[batch[id_key]])
+        return batch
+
+    def with_seed(self, seed):
+        return FeatureJoinedSampler(self.base.with_seed(seed), self.joins)
 
 
 class EvaluationSampler:

@@ -8,3 +8,7 @@ from openrec_tpu_torch.models.dlrm import DLRM, criteo_dlrm
 from openrec_tpu_torch.models.nbpr import NBPR, WCML
 from openrec_tpu_torch.models.ncf import MLPRec, NeuMF
 from openrec_tpu_torch.models.cdl import CDL
+from openrec_tpu_torch.models.visual import (VBPR, ConcatVisualBPR,
+                                             VisualBPR, VisualCML, VisualGMF,
+                                             VisualPMF)
+from openrec_tpu_torch.models.user_feature import UserPMF, UserVisualPMF
