@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2  # build and compare the kernels
     python3 chip_smoke.py --phases 1,2,4    # ... and time them
     python3 chip_smoke.py --phases 1,9  # the visual family alone
+    python3 chip_smoke.py --phases 1,10 # the sequence models alone
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
@@ -19,12 +20,14 @@ failure raises and exits non-zero:
      bucket members (exact ties: slot 1 keeps the earlier, K2's slot 2 the
      twin), no bias, and the serving shapes (Amazon; CiteULike; VBPR's
      Tradesy bf16 D = 100, whose 200-byte rows pad to Dp 112 and start
-     every other one 8-byte aligned); for K3 k in {1, 100,
+     every other one 8-byte aligned; LastFM's fp32 D = 32 with a bias and
+     D = 50 without, phase 10's); for K3 k in {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
      start on a 16-byte boundary, all-equal scores (K3's rescan branch),
-     a catalog of fewer than 8*Kb items, and the Amazon, CiteULike and
-     Tradesy shapes (bf16 D = 100: tau's scalar item_score path). Values
+     a catalog of fewer than 8*Kb items, and the Amazon, CiteULike,
+     Tradesy (bf16 D = 100: tau's scalar item_score path) and LastFM
+     shapes (fp32 D = 32; D = 50 without a bias). Values
      within rtol=atol=1e-5; an id may differ only where the two picks
      score within that tolerance (a different summation order); K2's
      second slot as id sets. Every user must have at least min(k, I) K3
@@ -45,10 +48,11 @@ failure raises and exits non-zero:
      which the port never calls) and its bound (bytes at 3.35 TB/s,
      operations at the peak for the input type), with its device time by
      kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16),
-     at the CiteULike shape (fp32) and at VBPR's Tradesy shape (256 x
-     165,906 x 100, bf16), each at the bucket its method picks there, K3
-     at the CiteULike retrieval shape of phase 5, at the Amazon shape and
-     at the Tradesy shape, each of K3's four launches (K1 bound pass, tau,
+     at the CiteULike shape (fp32), at VBPR's Tradesy shape (256 x
+     165,906 x 100, bf16) and at RNNRec's LastFM shape (256 x 14,598 x
+     32, fp32), each at the bucket its method picks there, K3 at the
+     CiteULike retrieval shape of phase 5, at the Amazon, Tradesy and
+     LastFM shapes, each of K3's four launches (K1 bound pass, tau,
      filter, final) on its own too.
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
@@ -157,13 +161,52 @@ failure raises and exits non-zero:
      in the unit ball (1 + 1e-4), 20 steps card against CPU from the
      trained weights and moments in fp32 with the TF32 control, as phase
      8 holds its models (VisualCML, whose hinge makes a few fp32 weights
-     differ, within max |diff| 1e-4, its control beyond that and its
-     fp64 run within the tolerance). Then each
+     differ, within max |diff| 1e-4, UserVisualPMF within 3e-5, each
+     control beyond its limit and each fp64 run within the tolerance).
+     Then each
      model serves as phase 7's do, VBPR from bf16 tables at D = 100 (its
      example's), the others from fp32 tables; K1, K2 and K3 count their
      launches over the phase. Per model: steps/s, examples/s, device
      busy ms and launches per step, idle share (one 10-step call under
      the profiler), peak memory, seconds by part.
+
+ 10. the sequence models at LastFM width (992 users x 14,598 items) on
+     synthetic sequences from --seed (`lastfm_data`: 250-350 records a
+     user, popularity falling with the item id, each next item its
+     predecessor's fixed successor with probability 0.5; each user's
+     last 10 % the test split), lazy_adam lr 1e-3, host-fed from each
+     model's example feed (Dataset.temporal, 4 workers, one step a
+     call): RNNRec with a GRU (dim 50, L 100, 32 units, 1,000
+     log-uniform samples, batch 256), 150 steps, then 100 steps of a
+     fresh copy from the same init on DeviceTemporalSampler; RNNRec
+     with an LSTM and the full softmax, 100 steps; VanillaYouTubeRec
+     (dim 50, L 20, batch 100) and YouTubeRec (gender 10 of 3, geo 40
+     of 67, L 20, batch 256, `temporal(joins=...)`), 300 steps each
+     (`SEQUENCE` gives the depths and why). Checks: losses finite, the
+     mean loss of the last call (50 steps; 100 for the YouTube models)
+     below the first's, evaluate_temporal's AUC and Recall@100 on the
+     test split above step 0 (the device leg against its own start), 20
+     steps card against CPU from the trained weights and moments with
+     the TF32 control, as phase 8's: fp32 within rtol 1e-4 / atol 1e-6,
+     but for the GRU (as a full-softmax copy: the two generators
+     differ), whose 20-step fp32 run is recorded and whose fp64 run is
+     the check there, and whose fp32 check is one step's loss and
+     gradients through the 100-step scan, without Adam, from the
+     trained weights (each gradient scaled by its max |entry|, rtol
+     1e-4 / atol 1e-5, its TF32 control outside: `gradient_card_vs_cpu`);
+     and `sampled_softmax_loss` card against CPU with 1,000 pinned
+     candidates (loss and gradients, rtol 1e-4, atol 1e-6). Then
+     RNNRec-gru (state [256, 32] against out_weight + out_bias) and
+     YouTubeRec (last hidden layer [256, 50] against the transposed last
+     weight, no bias) serve every test user's last window, 4 requests
+     of 256, fp32: `pallas` and `pallas2` scores exact and recall at
+     least the target less 0.01, K1/K2 equal to their plain version, K3
+     equal to torch.topk of model.score but for near-ties; K1, K2 and
+     K3 count their launches over the phase. Prints each model's test
+     Recall@100 beside a popularity ranker's. Per model: steps/s,
+     examples/s, device busy ms and launches per step, idle share (one
+     profiled call: 1 step for RNNRec, 10 for the others), peak memory,
+     seconds by part.
 
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
@@ -171,11 +214,13 @@ torch.profiler (device time by kernel, idle share).
 
 Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
-{"legacy": ...} line, a {"visual": ...} line, a {"kernels": [...]} line
-(K1, K2, K3; `launches` from the serving path for K1/K2 and the
-training path for K3, `launches_zoo` from phase 7, `launches_legacy`
-from phase 8, `launches_visual` from phase 9; each with a `tradesy`
-entry whose `launches` count phase 9's VBPR requests), and last
+{"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
+a {"kernels": [...]} line (K1, K2, K3; `launches` from the serving path
+for K1/K2 and the training path for K3, `launches_zoo` from phase 7,
+`launches_legacy` from phase 8, `launches_visual` from phase 9,
+`launches_sequence` from phase 10; each with a `tradesy` entry whose
+`launches` count phase 9's VBPR requests and a `lastfm` entry whose
+`launches` count phase 10's RNNRec requests), and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}; a phase that did not run prints nothing, and the fields
 it fills stay null. With --out FILE, the full record (every check, latency,
@@ -224,12 +269,18 @@ def port_catalog(name):
 # the Tradesy catalog
 TRADESY = dict(name="tradesy", dim=100, dtype="bfloat16",
                items=port_catalog("TRADESY").get("total_items"))
+# the sequence models' serving shapes over the LastFM catalog: RNNRec's
+# GRU state (32 units) against its output table and bias, fp32; and
+# YouTubeRec's last hidden layer (dim 50) against the transposed last MLP
+# weight, no bias
+LASTFM = dict(name="lastfm", dim=32, dtype="float32",
+              items=port_catalog("LASTFM").get("total_items"))
 BATCH, K, REQUESTS = 256, 100, 8
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 10)
+PHASES = range(1, 11)
 
 
 def fail(msg):
@@ -369,6 +420,16 @@ K1K2_CASES = [
     ("bf16 D=100 twin members", 40, 30_000, 100, "bfloat16", 16, "twins"),
     ("bf16 D=100 view one row in", 50, 9_999, 100, "bfloat16", 8, "row"),
     ("f32 D=100", 64, 20_000, 100, "float32", 8, ""),
+    # the LastFM serving shapes (phase 10) at the buckets `pallas` (2) and
+    # `pallas2` (8) pick there: fp32 D = 32 (128-byte rows) with a bias,
+    # and D = 50 with none (YouTubeRec's head)
+    ("lastfm K1 shape", BATCH, LASTFM["items"], 32, "float32", 2, ""),
+    ("lastfm K2 shape", BATCH, LASTFM["items"], 32, "float32", 8, ""),
+    ("lastfm no-bias K1 shape", BATCH, LASTFM["items"], 50, "float32", 2,
+     "nobias"),
+    ("lastfm no-bias K2 shape", BATCH, LASTFM["items"], 50, "float32", 8,
+     "nobias"),
+    ("f32 D=32 twin members", 40, 30_000, 32, "float32", 16, "twins"),
 ]
 
 
@@ -449,7 +510,8 @@ K3_CASES = [
     # 3j: exact ties) | "offset" (the table is a view one row into its
     # storage, so it does not start on a 16-byte boundary) | "zero" (zero
     # table and bias: all scores equal, so more than C candidates pass and
-    # the final kernel rescans; the answer is ids 0 .. k-1)
+    # the final kernel rescans; the answer is ids 0 .. k-1) | "nobias"
+    # (item_bias None)
     ("K3 f32 D=50 k=100 ragged", 37, 5_003, 50, "float32", 100, ""),
     ("K3 bf16 D=64 k=1", 70, 20_001, 64, "bfloat16", 1, ""),
     ("K3 f32 D=64 k=128", 33, 12_345, 64, "float32", 128, ""),
@@ -465,6 +527,10 @@ K3_CASES = [
     ("K3 amazon shape", BATCH, AMAZON["items"], 64, "bfloat16", K, ""),
     # bf16 rows of 200 bytes: tau's scalar item_score path
     ("K3 tradesy shape", BATCH, TRADESY["items"], 100, "bfloat16", K, ""),
+    # phase 10's: fp32 D = 32 (128-byte rows) with a bias; D = 50 without
+    ("K3 lastfm shape", BATCH, LASTFM["items"], 32, "float32", K, ""),
+    ("K3 lastfm no-bias shape", BATCH, LASTFM["items"], 50, "float32", K,
+     "nobias"),
 ]
 
 
@@ -515,6 +581,8 @@ def phase_compare_k3(torch, tk, gen, dev):
             v = torch.cat([v[:1], v])[1:]
             if v.data_ptr() % 16 == 0:
                 fail(f"{name}: the view is 16-byte aligned")
+        if layout == "nobias":
+            b = None
         want_v, want_i = tk.fused_topk_plain(u, v, b, k)
         vals, ids = tk.fused_score_topk(u, v, b, k)
         torch.cuda.synchronize()
@@ -1626,7 +1694,22 @@ def legacy_model(port, name, U, I, features, dev, gen=None, dropout=True):
                                generator=gen, **kw)
 
 
-def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype):
+def param_diff(torch, a, b):
+    """(max |a - b|, {name: entries outside rtol 1e-4, atol 1e-6}) over
+    two {name: tensor} dicts on the CPU, compared in the wider type."""
+    worst, by_param = 0.0, {}
+    for key, q in b.items():
+        p = a[key].to(torch.promote_types(a[key].dtype, q.dtype))
+        q = q.to(p.dtype)
+        worst = max(worst, (p - q).abs().max().item())
+        n_out = int((~torch.isclose(p, q, rtol=1e-4, atol=1e-6)).sum())
+        if n_out:
+            by_param[key] = n_out
+    return worst, by_param
+
+
+def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
+                cpu_params=None):
     """The same steps on the card and on the CPU in `dtype`, from where
     `trainer` stands: its model's weights and its lazy_adam state (count
     and moments), carried into both copies. `make(device)` builds a fresh
@@ -1639,7 +1722,9 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype):
     either sign, whatever the two devices. In fp32 a second card run with
     TF32 matmuls on is the control. Returns one record per card run: the
     largest differences and whether every parameter and loss agrees
-    within rtol 1e-4, atol 1e-6."""
+    within rtol 1e-4, atol 1e-6, and the entries outside by parameter.
+    `cpu_params`, a dict, receives the CPU run's parameters under the
+    dtype's name."""
     start = {k: v.detach() for k, v in trainer.model.params().items()}
     state = trainer.opt_state
 
@@ -1660,21 +1745,21 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype):
                 losses)
 
     cpu, cpu_losses = run(torch.device("cpu"))
+    if cpu_params is not None:
+        cpu_params[str(dtype).split(".")[-1]] = cpu
     runs = []
     for tf32 in (False, True) if dtype == torch.float32 else (False,):
         card, losses = run(dev, tf32)
         if not torch.isfinite(losses).all():
             fail(f"{what}: non-finite losses on the card")
-        worst, outside = 0.0, 0
-        for key, p in cpu.items():
-            worst = max(worst, (card[key] - p).abs().max().item())
-            outside += int((~torch.isclose(card[key], p, rtol=1e-4,
-                                           atol=1e-6)).sum())
+        worst, by_param = param_diff(torch, card, cpu)
+        outside = sum(by_param.values())
         loss_ok = torch.allclose(losses, cpu_losses, rtol=1e-4, atol=1e-6)
         runs.append({
             "steps": len(batches),
             "dtype": "tf32" if tf32 else str(dtype).split(".")[-1],
             "max_abs_param_diff": worst, "params_outside_tolerance": outside,
+            "outside_by_param": by_param,
             "max_abs_loss_diff": (losses - cpu_losses).abs().max().item(),
             "losses_within": loss_ok, "within": outside == 0 and loss_ok})
     return runs
@@ -1685,20 +1770,26 @@ def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
     """`card_vs_cpu` in fp32, the type that trains, which must agree (its
     TF32 control is recorded). An fp32 run outside the tolerance is
     rerun in fp64 before the phase stops, to tell the card's arithmetic
-    from a fault. With `limit` (VisualCML, whose hinge turns a rounding
-    difference at a triple on its margin into a different step; PERF.md
-    §6) the fp32 parameters need only lie within max |diff| `limit`, its
-    TF32 control must lie beyond it, and an fp64 run must agree within
-    the tolerance. With `fp64_check` (CDL, whose SDAE sums over 1,000
-    rows and 8,000 words put its fp32 run far outside in some runs even
-    from trained moments) the fp32 run is recorded and an fp64 run is
+    from a fault, and the CPU's own fp32 run is then held against its
+    fp64 run too (a record of dtype "cpu float32 vs float64": where it lies
+    as far out as the card's, the gap is fp32 rounding that the training
+    amplifies on any device). With `limit` (VisualCML, whose hinge turns a
+    rounding difference at a triple on its margin into a different step;
+    UserVisualPMF, one entry of which lay out in one run, the CPU's own
+    fp32 run as far out; PERF.md §6) the fp32 parameters need only lie
+    within max |diff| `limit`, its TF32 control must lie beyond it, and
+    an fp64 run must agree within the tolerance. With `fp64_check` (CDL,
+    whose SDAE sums over 1,000 rows and 8,000 words put its fp32 run far
+    outside in some runs even from trained moments; the GRU RNNRec of
+    phase 10) the fp32 run is recorded and an fp64 run is
     the check. Returns the runs."""
+    cpu = {}
     runs = card_vs_cpu(torch, port, what, make, trainer, batches, dev,
-                       torch.float32)
+                       torch.float32, cpu)
     fp32, control = runs
     if fp64_check or limit is not None or not fp32["within"]:
         runs += card_vs_cpu(torch, port, what, make, trainer, batches, dev,
-                            torch.float64)
+                            torch.float64, cpu)
     ok = runs[-1]["within"] if fp64_check else fp32["within"]
     if limit is not None:
         ok = (fp32["losses_within"] and fp32["max_abs_param_diff"] <= limit
@@ -1706,6 +1797,12 @@ def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
         if not control["max_abs_param_diff"] > limit:
             fail(f"{what}: the TF32 control lies within the fp32 limit "
                  f"{limit}: {runs}")
+    if "float64" in cpu:
+        worst, by_param = param_diff(torch, cpu["float32"], cpu["float64"])
+        runs.append({"steps": len(batches), "dtype": "cpu float32 vs float64",
+                     "max_abs_param_diff": worst,
+                     "params_outside_tolerance": sum(by_param.values()),
+                     "outside_by_param": by_param})
     if not ok:
         fail(f"{what}: card and CPU disagree after {len(batches)} steps: "
              f"{runs}")
@@ -2028,12 +2125,15 @@ VISUAL_POINTWISE = ("VisualPMF", "VisualGMF", "UserPMF", "UserVisualPMF")
 # records: the VBPR paper's Tradesy feedback count; features: its CNN
 # width; 3 category columns of 5 values a user, the layout (and range) of
 # the Amazon-book fixture's user_features_categories.npy
-# fp32_limit: VisualCML's card-vs-CPU limit, above the largest fp32
-# difference of the runs whose fp64 run agreed (2.3e-5) and below its
-# TF32 control's (>= 5.4e-4; PERF.md §6)
+# fp32_limit: per-model card-vs-CPU limits, above the largest fp32
+# difference of the runs whose fp64 run agreed and below the TF32
+# control's (PERF.md §6): VisualCML's (2.3e-5; control >= 5.4e-4), and
+# UserVisualPMF's (one item_embed entry out by 3.41e-6, the CPU's own fp32
+# run as far from its fp64 run at that entry; control 2.44e-3)
 VISUAL = dict(records=410_000, features=4096, categories=5, steps=300,
               k=100, pos_ratio=0.2, card_vs_cpu_steps=20, profiled_steps=10,
-              eval_batch=1000, fp32_limit={"VisualCML": 1e-4})
+              eval_batch=1000,
+              fp32_limit={"VisualCML": 1e-4, "UserVisualPMF": 3e-5})
 
 
 def tradesy_data(loaders, seed, run=VISUAL):
@@ -2251,6 +2351,562 @@ def phase_visual(torch, port, seed, dev, run=VISUAL):
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+SEQUENCE_MODELS = ("RNNRec-gru", "RNNRec-lstm", "VanillaYouTubeRec",
+                   "YouTubeRec")
+SEQUENCE_SERVED = ("RNNRec-gru", "YouTubeRec")
+# (batch, max_seq_len) of each model's example
+SEQUENCE_FEED = {"RNNRec-gru": (256, 100), "RNNRec-lstm": (256, 100),
+                 "VanillaYouTubeRec": (100, 20), "YouTubeRec": (256, 20)}
+# LastFM's width (992 x 14,598) with ~300 records a user, so that L = 100
+# windows fill; 3 genders and 67 geos (examples/youtube_rec_lastfm.py)
+# Depth, cut to keep the phase near 90 s (PERF.md §4): RNNRec 150 (GRU)
+# and 100 (LSTM) host-fed steps in calls of 50 and 100 device-sampled (the
+# example asks for 10,000; one GRU step at L 100 is ~6,300 launches, ~0.1 s
+# of host time; at 100 steps the GRU's `pallas` recall sat at its floor,
+# PERF.md §6), one profiled step (under the profiler a GRU step takes
+# ~7 s); the YouTube models 300 in calls of 100 and a 10-step profiled
+# call. Widths, L and batches are the examples'. fp64_check: the models
+# whose fp32 card-vs-CPU run is recorded and whose fp64 run is the check
+# (as CDL's in phase 8): the GRU RNNRec, whose fp32 run lay
+# 319,805-414,431 weights outside in every run with its TF32 control as
+# far (PERF.md §6); its fp32 check is `gradient_card_vs_cpu`'s one step
+# without Adam. gradient_atol: that check's atol on gradients scaled by
+# their max |entry|, above its fp32 readings (cell/wz's, <= 1.43e-6) and
+# below its TF32 control's (1.2e-4-5.5e-4 in the cell; PERF.md §6).
+SEQUENCE = dict(records_per_user=(250, 351), follow=0.5, test_share=0.1,
+                genders=3, geos=67,
+                steps={"RNNRec-gru": 150, "RNNRec-lstm": 100,
+                       "VanillaYouTubeRec": 300, "YouTubeRec": 300},
+                k={"RNNRec-gru": 50, "RNNRec-lstm": 50,
+                   "VanillaYouTubeRec": 100, "YouTubeRec": 100},
+                profiled_steps={"RNNRec-gru": 1, "RNNRec-lstm": 1,
+                                "VanillaYouTubeRec": 10, "YouTubeRec": 10},
+                device_steps=100, card_vs_cpu_steps=20, at=(100, 500),
+                eval_batch=256, workers=4, fp64_check=("RNNRec-gru",),
+                gradient_atol=1e-5)
+
+
+def lastfm_data(loaders, seed, run=SEQUENCE):
+    """LastFM's width on synthetic data from the seed, by numpy: each of
+    the 992 users gets 250-350 time-stamped records (ts = position); the
+    first item is a popularity draw, and each next one is, with
+    probability `follow`, `succ[previous]` for one fixed random
+    permutation `succ` of the catalog, else a popularity draw.
+    Popularity is `long_tail_items`'s law p(rank r) ~ (r + 10)^-0.9 with
+    rank = id, the order TF's log-uniform sampler assumes. Each user's
+    last 10 % of records by ts form the test split, as the examples split
+    theirs; int32 genders and geos for every user."""
+    U, I = loaders.LASTFM["total_users"], loaders.LASTFM["total_items"]
+    rng = np.random.default_rng(seed + 10)
+    lo, hi = run["records_per_user"]
+    n_u = rng.integers(lo, hi, U)
+    T = int(n_u.max())
+    p = 1.0 / (np.arange(I) + 10.0) ** 0.9
+    pop = rng.choice(I, (T, U), p=p / p.sum())
+    follow = rng.random((T, U)) < run["follow"]
+    succ = rng.permutation(I)
+    items = np.empty((T, U), np.int64)
+    items[0] = pop[0]
+    for t in range(1, T):
+        items[t] = np.where(follow[t], succ[items[t - 1]], pop[t])
+    t_idx = np.arange(T)[:, None]
+    keep = t_idx < n_u[None, :]
+    test = keep & (t_idx >= (n_u - np.ceil(run["test_share"] * n_u)
+                             .astype(np.int64))[None, :])
+    dtype = [("user_id", np.int32), ("item_id", np.int32), ("ts", np.int64)]
+
+    def records(mask):
+        t, u = np.nonzero(mask)
+        out = np.zeros(len(t), dtype=dtype)
+        out["user_id"], out["item_id"], out["ts"] = u, items[t, u], t
+        return out
+    return {"total_users": U, "total_items": I,
+            "train_data": records(keep & ~test),
+            "test_data": records(test),
+            "gender": rng.integers(0, run["genders"], U).astype(np.int32),
+            "geo": rng.integers(0, run["geos"], U).astype(np.int32)}
+
+
+def sequence_model(port, name, I, dev, gen=None, sampled=True):
+    """One of phase 10's models at its example's configuration; sampled=
+    False gives the GRU RNNRec a full softmax (card against CPU, whose
+    generators differ)."""
+    if name.startswith("RNNRec"):
+        gru = name == "RNNRec-gru"
+        return port.RNNRec(I, 50, 100, 32, cell_type="gru" if gru
+                           else "lstm",
+                           softmax_samples=1000 if gru and sampled else None,
+                           device=dev, generator=gen)
+    if name == "VanillaYouTubeRec":
+        return port.VanillaYouTubeRec(I, 50, 20, device=dev, generator=gen)
+    return port.YouTubeRec(I, 50, 20, total_genders=SEQUENCE["genders"],
+                           total_geos=SEQUENCE["geos"], dim_gender_embed=10,
+                           dim_geo_embed=40, device=dev, generator=gen)
+
+
+def popularity_recall(data, test_ds, at):
+    """Recall@k of the popularity ranker (train counts; ties rank the
+    label first, as `evaluate_temporal`'s strict `>` does) on the test
+    split's held-out items, the labels of every model's evaluation."""
+    counts = np.bincount(data["train_data"]["item_id"],
+                         minlength=data["total_items"])
+    hits, n = np.zeros(len(at)), 0
+    for b in test_ds.temporal_evaluation(SEQUENCE["eval_batch"],
+                                         1).epoch():
+        lab = b["label"][b["valid"]]
+        rank = (counts[None, :] > counts[lab][:, None]).sum(axis=1)
+        hits += [(rank < k).sum() for k in at]
+        n += len(lab)
+    return {f"Recall@{k}": float(h / n) for k, h in zip(at, hits)}
+
+
+def evaluate_sequence(trainer, test_ds, L, joins, run):
+    m = trainer.evaluate_temporal(test_ds.temporal_evaluation(
+        run["eval_batch"], L, joins=joins), at=run["at"])
+    out = {"AUC": float(m["AUC"])}
+    for i, k in enumerate(run["at"]):
+        out[f"Recall@{k}"] = float(m["Recall"][i])
+        out[f"NDCG@{k}"] = float(m["NDCG"][i])
+    return out
+
+
+def run_sequence_calls(torch, call, steps, k):
+    """`steps` steps in calls of `k` (each returns its [k] losses on the
+    device, copied after the call): losses and steps/s by call."""
+    losses, its = [], []
+    for _ in range(steps // k):
+        t = time.perf_counter()
+        out = call(k).cpu()
+        its.append(k / (time.perf_counter() - t))
+        losses.append(out)
+    return torch.cat(losses).numpy(), its
+
+
+def sequence_leg(torch, trainer, call, steps, k, val0, what, evaluate, B):
+    """A training leg and its checks: every loss finite, the mean of the
+    last `k` below the first `k`'s, AUC and Recall@100 above `val0`."""
+    losses, its = run_sequence_calls(torch, call, steps, k)
+    means = [float(losses[i:i + k].mean()) for i in range(0, steps, k)]
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what}: non-finite losses")
+    if not means[-1] < means[0]:
+        fail(f"{what}: the mean loss of the last {k} steps {means[-1]} is "
+             f"not below that of the first {means[0]}")
+    val = evaluate(trainer)
+    for metric in ("AUC", "Recall@100"):
+        if not val[metric] > val0[metric]:
+            fail(f"{what}: {metric} did not rise: {val0[metric]} -> "
+                 f"{val[metric]}")
+    steps_per_s = float(np.median(its))
+    return {"steps": steps, "steps_per_call": k, "steps_per_s_by_call": its,
+            "steps_per_s": steps_per_s, "examples_per_s": steps_per_s * B,
+            "mean_loss_by_call": means, "test": val}
+
+
+def sampled_softmax_card_vs_cpu(torch, port, model, batch, dev, seed):
+    """`sampled_softmax_loss` on the card and on the CPU with the same 1,000
+    pinned log-uniform candidates and their expected counts, from the
+    trained model's state and output table: the loss and its gradients by
+    the table, the bias and the state, rtol 1e-4, atol 1e-6."""
+    from openrec_tpu_torch.data import to_device
+    from openrec_tpu_torch.modules import losses
+    I, S = model.total_items, model.softmax_samples
+    with torch.no_grad():
+        state = model.hidden(to_device(batch, dev)).cpu()
+    ids = losses.log_uniform_sample(S, I, torch.Generator().manual_seed(seed))
+    labels = torch.as_tensor(batch["label"]).long()
+    values = (ids, S * torch.exp(losses.log_uniform_logprob(labels, I)),
+              S * torch.exp(losses.log_uniform_logprob(ids, I)))
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        ts = [t.detach().to(d).clone().requires_grad_() for t in (
+            model.out_weight, model.out_bias, state)]
+        loss = losses.sampled_softmax_loss(
+            *ts, labels.to(d), S, sampled_values=tuple(v.to(d)
+                                                       for v in values))
+        loss.backward()
+        out[where] = [loss.detach().cpu()] + [t.grad.cpu() for t in ts]
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(out["card"], out["cpu"]))
+    within = all(torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+                 for a, b in zip(out["card"], out["cpu"]))
+    hits = int((ids[None, :] == labels[:, None]).sum())
+    if not within:
+        fail(f"sequence sampled_softmax_loss: card and CPU differ by {worst}")
+    return {"candidates": S, "accidental_hits": hits, "max_abs_diff": worst,
+            "loss": out["cpu"][0].item(), "within": within}
+
+
+def gradient_card_vs_cpu(torch, what, make, trainer, batch, dev, atol):
+    """One step's loss and gradients by every parameter on the card and
+    on the CPU in fp32, from `trainer`'s weights and without the
+    optimizer: forward and backward through the whole model (RNNRec's
+    100-step scan). Each gradient is divided by its largest |entry| on
+    the CPU before the compare (rtol 1e-4, `atol`): a batch-mean
+    gradient lies below 1e-2, where the weights' atol 1e-6 alone would
+    pass a TF32 product. A second card run with TF32 matmuls on is the
+    control and must lie outside, or the check cannot see a
+    lower-precision product in the cell. The fp32 check of a model whose
+    20-step run card against CPU cannot be told from its control (the
+    GRU RNNRec, PERF.md §6). Returns one record per card run, by
+    parameter: the largest |gradient|, |difference| and scaled
+    difference, the entries outside, and those whose difference exceeds
+    1e-4 of their own |gradient| (what Adam's normalised step
+    amplifies)."""
+    from openrec_tpu_torch.data import to_device
+    start = {k: v.detach() for k, v in trainer.model.params().items()}
+
+    def run(d, tf32=False):
+        m = make(d)
+        m.load_params({k: v.to(d) for k, v in start.items()})
+        names, params = zip(*m.params().items())
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss, _ = m.loss(to_device(batch, d))
+            grads = torch.autograd.grad(loss, params)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out = {n: g.cpu() for n, g in zip(names, grads)}
+        out["loss"] = loss.detach().cpu()
+        return out
+
+    cpu = run(torch.device("cpu"))
+    runs = []
+    for tf32 in (False, True):
+        card, by_param = run(dev, tf32), {}
+        for n, q in cpu.items():
+            scale = q.abs().max().item() if n != "loss" else 1.0
+            scale = scale or 1.0
+            diff = (card[n] - q).abs()
+            by_param[n] = {
+                "max_abs_grad": q.abs().max().item(),
+                "max_abs_diff": diff.max().item(),
+                "max_scaled_diff": diff.max().item() / scale,
+                "outside": int((~torch.isclose(card[n] / scale, q / scale,
+                                               rtol=1e-4, atol=atol))
+                               .sum()),
+                "outside_own_rtol_1e-4": int((diff > 1e-4 * q.abs()).sum())}
+        outside = sum(r["outside"] for r in by_param.values())
+        runs.append({"dtype": "tf32" if tf32 else "float32",
+                     "outside_tolerance": outside, "within": outside == 0,
+                     "by_param": by_param})
+    if not runs[0]["within"]:
+        fail(f"{what}: one step's loss and gradients differ card against "
+             f"CPU in fp32: {runs}")
+    if runs[1]["within"]:
+        fail(f"{what}: the TF32 control of one step's gradients lies "
+             f"within the tolerance: {runs}")
+    return runs
+
+
+def sequence_serving(torch, name, model, test_ds, joins, dev):
+    """Every test user's last window (the test split's
+    `temporal_evaluation`, 4 requests of up to 256: the padding rows of
+    its last batch, empty windows, are no user's and are not served)
+    served from `model.hidden` against `serving_tables()` in
+    fp32: `pallas` and `pallas2` through `bucket_score_topk` and K3
+    (`fused_score_topk`). Every returned score must be the fp32 score at
+    its id, recall against the exact top-100 at least the target less
+    0.01, K3's ids those of torch.topk of `model.score` but for picks
+    scoring within 1e-5, and K1 and K2 equal to their plain version at
+    their buckets (those launches are given back to the counters)."""
+    from openrec_tpu_torch.data import to_device
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    table, bias = model.serving_tables()
+    I = table.shape[0]
+    ev = test_ds.temporal_evaluation(BATCH, model.max_seq_len, joins=joins)
+    hits = {"pallas": 0, "pallas2": 0}
+    out = {"requests": 0, "users": 0, "score_max_abs_err": 0.0,
+           "score_vs_model_max_abs_diff": 0.0, "ms": {"pallas": [],
+                                                      "pallas2": [],
+                                                      "k3": []}}
+    k3_checks, bad_model, ties_model = [], 0, 0
+    plain = {"K1": [], "K2": []}
+    for batch in ev.epoch():
+        valid = batch["valid"]
+        feed = to_device({k: v[valid] for k, v in batch.items()
+                          if k not in ("label", "valid")}, dev)
+        with torch.no_grad():
+            u = model.hidden(feed).contiguous()
+            ms = model.score(feed)
+        full = tk.dot_scores(u, table, bias)
+        out["score_vs_model_max_abs_diff"] = max(
+            out["score_vs_model_max_abs_diff"],
+            (full - ms).abs().max().item())
+        if not near(full, ms).all():
+            fail(f"sequence {name}: hidden . table + bias is not the "
+                 "model's score")
+        ex_v, ex_i = torch.topk(full, K, dim=1)
+        ex_sorted = torch.sort(ex_i, dim=1).values
+        for m, per in (("pallas", 1), ("pallas2", 2)):
+            t = time.perf_counter()
+            vals, ids = bt.bucket_score_topk(u, table, bias, K,
+                                             recall_target=TARGETS[m],
+                                             per_bucket=per)
+            torch.cuda.synchronize()
+            out["ms"][m].append((time.perf_counter() - t) * 1e3)
+            ref = full.gather(1, ids.long())
+            out["score_max_abs_err"] = max(out["score_max_abs_err"],
+                                           (vals - ref).abs().max().item())
+            if not near(vals, ref).all():
+                fail(f"sequence {name} {m}: a returned score is not the "
+                     "fp32 score at its id")
+            found = torch.searchsorted(ex_sorted, ids.to(ex_sorted.dtype))
+            hits[m] += int((ex_sorted.gather(1, found.clamp(max=K - 1))
+                            == ids).sum())
+        t = time.perf_counter()
+        vals, ids = tk.fused_score_topk(u, table, bias, K)
+        torch.cuda.synchronize()
+        out["ms"]["k3"].append((time.perf_counter() - t) * 1e3)
+        k3_checks.append(check_topk(torch, vals, ids, ex_v, ex_i, full,
+                                    f"sequence {name} K3"))
+        ref_v, ref_i = torch.topk(ms, K, dim=1)
+        diff = ids != ref_i.to(ids.dtype)
+        tie = diff & near(ms.gather(1, ids.long()), ref_v)
+        bad_model += int((diff & ~tie).sum())
+        ties_model += int(tie.sum())
+        counted = (bt.bucket_max_scores.launches,
+                   bt.bucket_max2_scores.launches)
+        for kname, m, top2 in (("K1", "pallas", False),
+                               ("K2", "pallas2", True)):
+            bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
+                                      per_bucket=2 if top2 else 1)
+            plain[kname].append((bucket,) + compare_kernel(
+                torch, bt, u, table, bias, bucket, top2))
+        bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = \
+            counted
+        out["requests"] += 1
+        out["users"] += int(valid.sum())
+    n = out["users"] * K
+    out["recall_vs_exact"] = {m: h / n for m, h in hits.items()}
+    for m, r in out["recall_vs_exact"].items():
+        if r < TARGETS[m] - 0.01:
+            fail(f"sequence {name} {m}: recall {r} below its floor "
+                 f"{TARGETS[m] - 0.01}")
+    out["k1k2_vs_plain"] = {
+        kname: {"bucket": c[0][0], "max_abs_err": max(x[1] for x in c),
+                "id_mismatch_not_tie": sum(x[2] for x in c),
+                "id_mismatch_tie": sum(x[3] for x in c)}
+        for kname, c in plain.items()}
+    for kname, c in out["k1k2_vs_plain"].items():
+        if c["id_mismatch_not_tie"]:
+            fail(f"sequence {name} {kname}: id mismatches against its "
+                 f"plain version that are not near-ties {c}")
+    out["k3"] = {"max_abs_err": max(c[0] for c in k3_checks),
+                 "id_mismatch_not_tie": sum(c[1] for c in k3_checks),
+                 "id_mismatch_tie": sum(c[2] for c in k3_checks),
+                 "vs_model_score_not_tie": bad_model,
+                 "vs_model_score_tie": ties_model}
+    if out["k3"]["id_mismatch_not_tie"] or bad_model:
+        fail(f"sequence {name} K3: id mismatches that are not near-ties "
+             f"{out['k3']}")
+    out["calls"] = {m: out["requests"] for m in ("pallas", "pallas2", "k3")}
+    out["table"] = {"shape": list(table.shape), "bias": bias is not None,
+                    "dtype": "float32"}
+    out["p50_ms"] = {m: float(np.median(v)) for m, v in out["ms"].items()}
+    return out
+
+
+def sequence_run(torch, port, name, data, train_ds, test_ds, seed, dev,
+                 run):
+    """One model of phase 10: host-fed training from its example's feed,
+    the checks of `sequence_leg`, the profiled call, card against CPU,
+    and for the GRU RNNRec a device-sampled leg from a fresh copy and the
+    pinned sampled-softmax compare; serving for RNNRec-gru and
+    YouTubeRec. Returns the record."""
+    from openrec_tpu_torch.data import samplers
+    store = train_ds.store
+    I = store.total_items()
+    B, L = SEQUENCE_FEED[name]
+    k = run["k"][name]
+    joins = ([("user_id", data["gender"], "user_gender"),
+              ("user_id", data["geo"], "user_geo")]
+             if name == "YouTubeRec" else ())
+    seconds, t = {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = sequence_model(port, name, I, dev, gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    init = {k_: v.detach().clone() for k_, v in model.params().items()}
+    trainer = port.Trainer(model, lr=TRAIN["lr"], seed=seed, device=dev)
+
+    def evaluate(tr):
+        return evaluate_sequence(tr, test_ds, L, joins, run)
+    out = {"config": {"items": I, "batch": B, "max_seq_len": L,
+                      "lr": TRAIN["lr"], "optimizer": "lazy_adam",
+                      "softmax_samples": getattr(model, "softmax_samples",
+                                                 None),
+                      "params": {k_: list(v.shape) for k_, v in init.items()}},
+           "test_step0": evaluate(trainer),
+           "feed": f"temporal{'(joins=...)' if joins else ''}, "
+                   f"{run['workers']} workers"}
+    host = samplers.TemporalSampler(store, B, L, seed=seed + 7)
+    if joins:
+        host = samplers.FeatureJoinedSampler(host, joins)
+    batches = [host.sample() for _ in range(run["card_vs_cpu_steps"])]
+    seconds["setup"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    feed = train_ds.temporal(B, L, num_parallel_calls=run["workers"],
+                             joins=joins)
+    it = iter(feed)
+    out["host_fed"] = r = sequence_leg(
+        torch, trainer,
+        lambda n: torch.stack([trainer.train_step(next(it))[0]
+                               for _ in range(n)]),
+        run["steps"][name], k, out["test_step0"],
+        f"sequence {name} host-fed", evaluate, B)
+    feed.stop()
+    seconds["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    n = run["profiled_steps"][name]
+    profile_steps(torch, r, lambda: trainer.train_step_multi(
+        batches[:n]).cpu(), n)
+    seconds["profile"] = time.perf_counter() - t
+    out["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+
+    if name == "RNNRec-gru":
+        # F3's rule: the device-sampled leg starts fresh from the same
+        # init and is held against its own step 0
+        t = time.perf_counter()
+        fresh = sequence_model(port, name, I, dev)
+        fresh.load_params(init)
+        tr_d = port.Trainer(fresh, lr=TRAIN["lr"], seed=seed + 1, device=dev)
+        dsamp = port.DeviceTemporalSampler(store, B, L, device=dev)
+        out["device_sampled"] = d = sequence_leg(
+            torch, tr_d, lambda n_: tr_d.train_steps_device(dsamp, n_),
+            run["device_steps"], k, out["test_step0"],
+            f"sequence {name} device-sampled", evaluate, B)
+        seconds["device_sampled"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["sampled_softmax_card_vs_cpu"] = sampled_softmax_card_vs_cpu(
+            torch, port, model, batches[0], dev, seed)
+        seconds["sampled_softmax_compare"] = time.perf_counter() - t
+
+    val0, val = out["test_step0"], r["test"]
+    line = (f"sequence {name} host-fed ({out['feed']}): {r['steps']} steps, "
+            f"{r['steps_per_s']:.2f} steps/s, {r['examples_per_s']:.0f} "
+            f"examples/s, device busy {r['device_busy_ms_per_step']:.3f} ms "
+            f"a step ({r['device_ops_per_step']:.0f} launches; one "
+            f"{n}-step call), idle {r['idle_share']:.3f}; mean loss by call "
+            + ", ".join(f"{x:.4f}" for x in r["mean_loss_by_call"])
+            + f"; test AUC {val0['AUC']:.4f} -> {val['AUC']:.4f}, "
+            f"Recall@100 {val0['Recall@100']:.4f} -> "
+            f"{val['Recall@100']:.4f}")
+    if "device_sampled" in out:
+        d = out["device_sampled"]
+        line += (f"; device-sampled (fresh copy): {d['steps']} steps, "
+                 f"{d['steps_per_s']:.2f} steps/s, mean loss by call "
+                 + ", ".join(f"{x:.4f}" for x in d["mean_loss_by_call"])
+                 + f", AUC -> {d['test']['AUC']:.4f}, Recall@100 -> "
+                 f"{d['test']['Recall@100']:.4f}")
+    print(line + "; seconds " + json.dumps(
+        {k_: round(v, 2) for k_, v in seconds.items()}), flush=True)
+
+    t = time.perf_counter()
+
+    out["card_vs_cpu"] = card_vs_cpu_checked(
+        torch, port, f"sequence {name}",
+        lambda d: sequence_model(port, name, I, d, sampled=False), trainer,
+        batches, dev, fp64_check=name in run["fp64_check"])
+    seconds["card_vs_cpu"] = time.perf_counter() - t
+    if name in run["fp64_check"]:
+        t = time.perf_counter()
+        out["gradient_card_vs_cpu"] = gradient_card_vs_cpu(
+            torch, f"sequence {name}",
+            lambda d: sequence_model(port, name, I, d, sampled=False),
+            trainer, batches[0], dev, run["gradient_atol"])
+        seconds["gradient_compare"] = time.perf_counter() - t
+    if name in SEQUENCE_SERVED:
+        t = time.perf_counter()
+        out["serving"] = sequence_serving(torch, name, model, test_ds,
+                                          joins, dev)
+        seconds["serving"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    served = ""
+    if "serving" in out:
+        sv = out["serving"]
+        served = ("; serving recall " + json.dumps(sv["recall_vs_exact"])
+                  + f", scores max |err| {sv['score_max_abs_err']:.3g}, "
+                  "K1/K2 vs plain " + json.dumps(sv["k1k2_vs_plain"])
+                  + ", K3 " + json.dumps(sv["k3"]))
+    print(f"sequence {name}: card-vs-cpu {len(batches)} steps, "
+          + ", ".join(f"{c['dtype']} params max |diff| "
+                      f"{c['max_abs_param_diff']:.3g} ("
+                      f"{c['params_outside_tolerance']} outside: "
+                      f"{json.dumps(c['outside_by_param'])})"
+                      for c in out["card_vs_cpu"])
+          + "".join(f"; one step's gradients {c['dtype']}: "
+                    f"{c['outside_tolerance']} outside, scaled max |diff| "
+                    "by param " + json.dumps(
+                        {n: float(f"{r['max_scaled_diff']:.3g}")
+                         for n, r in c["by_param"].items()})
+                    for c in out.get("gradient_card_vs_cpu", ()))
+          + "; peak "
+          f"{out['max_memory_allocated_gb']:.3f} GB{served}; seconds "
+          + json.dumps({k_: round(v, 2) for k_, v in seconds.items()}),
+          flush=True)
+    return out
+
+
+def phase_sequence(torch, port, seed, dev, run=SEQUENCE):
+    """Phase 10: RNNRec (GRU with sampled softmax, LSTM with the full
+    one), VanillaYouTubeRec and YouTubeRec at LastFM width on the
+    synthetic sequences of `lastfm_data`; RNNRec-gru's and YouTubeRec's
+    next-item top-100 served through K1/K2/K3. The kernels' counters are
+    set to 0 here and read at the end."""
+    from openrec_tpu_torch.data import Dataset, loaders
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
+                "K3": tk.fused_score_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    data = lastfm_data(loaders, seed, run)
+    U, I = data["total_users"], data["total_items"]
+    train_ds = Dataset(data["train_data"], U, I, sortby="ts", seed=seed)
+    test_ds = Dataset(data["test_data"], U, I, sortby="ts", seed=seed)
+    out = {"data": {"users": U, "items": I,
+                    "train_records": len(data["train_data"]),
+                    "test_records": len(data["test_data"]),
+                    "follow": run["follow"]},
+           "popularity": popularity_recall(data, test_ds, run["at"]),
+           "setup_s": time.perf_counter() - t}
+    print(f"sequence data: {out['data']}, popularity ranker "
+          + json.dumps(out["popularity"]) + f" in {out['setup_s']:.1f} s",
+          flush=True)
+    for name in SEQUENCE_MODELS:
+        out[name] = sequence_run(torch, port, name, data, train_ds, test_ds,
+                                 seed, dev, run)
+        pop = out["popularity"]["Recall@100"]
+        print(f"sequence {name}: test Recall@100 "
+              f"{out[name]['host_fed']['test']['Recall@100']:.4f}, "
+              f"popularity ranker {pop:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = {"K1": "pallas", "K2": "pallas2", "K3": "k3"}
+    want = {kname: sum(out[n]["serving"]["calls"][m]
+                       for n in SEQUENCE_SERVED)
+            for kname, m in calls.items()}
+    out["launches"] = launches
+    # RNNRec-gru's requests: the LastFM entries' fp32 D = 32 shape
+    out["launches_lastfm_d32"] = {
+        kname: out["RNNRec-gru"]["serving"]["calls"][m]
+        for kname, m in calls.items()}
+    if launches != want:
+        fail(f"sequence: kernel launches {launches}, the path made {want}")
+    # the fp64-checked models' 20-step controls read as their fp32 runs;
+    # `gradient_card_vs_cpu` holds theirs outside
+    out["tf32_caught"] = check_tf32_controls(
+        "sequence", out,
+        [n for n in SEQUENCE_MODELS if n not in run["fp64_check"]])
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -2315,10 +2971,11 @@ def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
 def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     """K1's and K2's entries of the kernels line: their numbers at the
     Amazon serving shape (bf16, the tensor-core route), with the
-    CiteULike shape (fp32, the CUDA-core route) and VBPR's Tradesy shape
-    (bf16, D = 100) beside them, each at the bucket `bucket_score_topk`
-    picks there for its method's target. The CiteULike and Tradesy
-    entries' `max_abs_err` is phase 2's at that shape and bucket."""
+    CiteULike shape (fp32, the CUDA-core route), VBPR's Tradesy shape
+    (bf16, D = 100) and RNNRec's LastFM shape (fp32, D = 32) beside them,
+    each at the bucket `bucket_score_topk` picks there for its method's
+    target. The CiteULike, Tradesy and LastFM entries' `max_abs_err` is
+    phase 2's at that shape and bucket."""
     def inputs(I, D, dtype):
         u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
         v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05)
@@ -2328,6 +2985,7 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     amazon = inputs(AMAZON["items"], AMAZON["dim"], torch.bfloat16)
     citeulike = inputs(CITEULIKE["items"], CITEULIKE["dim"], torch.float32)
     tradesy = inputs(TRADESY["items"], TRADESY["dim"], torch.bfloat16)
+    lastfm = inputs(LASTFM["items"], LASTFM["dim"], torch.float32)
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
@@ -2359,7 +3017,8 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              and c["bucket"] == entry["citeulike"]["shape"]["bucket"]),
             None)
         entry["citeulike"]["launches"] = entry["launches_zoo"] = \
-            entry["launches_legacy"] = entry["launches_visual"] = None
+            entry["launches_legacy"] = entry["launches_visual"] = \
+            entry["launches_sequence"] = None
         entry["tradesy"] = time_bucket_kernel(torch, bt, *tradesy, top2,
                                               bucket_at(TRADESY))
         entry["tradesy"]["variant"] = "mma-bf16"
@@ -2368,9 +3027,18 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              if c["kernel"] == kname and c["case"].startswith("tradesy")
              and c["bucket"] == entry["tradesy"]["shape"]["bucket"]), None)
         entry["tradesy"]["launches"] = None
+        entry["lastfm"] = time_bucket_kernel(torch, bt, *lastfm, top2,
+                                             bucket_at(LASTFM))
+        entry["lastfm"]["variant"] = F32_VARIANT
+        entry["lastfm"]["max_abs_err"] = next(
+            (c["max_abs_err"] for c in compare_report
+             if c["kernel"] == kname and c["case"].startswith("lastfm K")
+             and c["bucket"] == entry["lastfm"]["shape"]["bucket"]), None)
+        entry["lastfm"]["launches"] = None
         entries.append(entry)
         for name, t in (("amazon", entry), ("citeulike", entry["citeulike"]),
-                        ("tradesy", entry["tradesy"])):
+                        ("tradesy", entry["tradesy"]),
+                        ("lastfm", entry["lastfm"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
@@ -2442,9 +3110,11 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
                   compare_report):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
-    shape (bf16) and VBPR's Tradesy shape (bf16, D = 100) beside them.
-    `launches` is filled in by phase 5, the Tradesy entry's by phase 9;
-    `amazon_launches` is K3's count over phase 3's Amazon requests."""
+    shape (bf16), VBPR's Tradesy shape (bf16, D = 100) and RNNRec's
+    LastFM shape (fp32, D = 32) beside them. `launches` is filled in by
+    phase 5, the Tradesy entry's by phase 9, the LastFM entry's by phase
+    10; `amazon_launches` is K3's count over phase 3's Amazon
+    requests."""
     entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
              "route": "cuda",
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
@@ -2452,7 +3122,7 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
              "replaces_function": "_fused_topk_kernel",
              "launches": None, "launches_zoo": None,
              "launches_legacy": None, "launches_visual": None,
-             "max_abs_err": err}
+             "launches_sequence": None, "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
@@ -2464,8 +3134,15 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
     entry["tradesy"]["max_abs_err"] = next(
         (c["max_abs_err"] for c in compare_report
          if c["case"] == "K3 tradesy shape"), None)
+    entry["lastfm"] = time_k3(torch, tk, gen, dev, BATCH, LASTFM["items"],
+                              LASTFM["dim"], "float32")
+    entry["lastfm"]["launches"] = None
+    entry["lastfm"]["max_abs_err"] = next(
+        (c["max_abs_err"] for c in compare_report
+         if c["case"] == "K3 lastfm shape"), None)
     for name, t in (("citeulike", entry), ("amazon", entry["amazon"]),
-                    ("tradesy", entry["tradesy"])):
+                    ("tradesy", entry["tradesy"]),
+                    ("lastfm", entry["lastfm"])):
         print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
               f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
               "stages " + json.dumps(t["stages_ms"]), flush=True)
@@ -2531,7 +3208,7 @@ def main(argv=None):
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
     serve, kernels = {}, []
-    train = dlrm = zoo = legacy = visual = None
+    train = dlrm = zoo = legacy = visual = sequence = None
 
     # phase 2
     if 2 in phases:
@@ -2600,12 +3277,26 @@ def main(argv=None):
             entry["launches_visual"] = visual["launches"][entry["name"][:2]]
             entry["tradesy"]["launches"] = \
                 visual["launches_tradesy_bf16"][entry["name"][:2]]
+        torch.cuda.empty_cache()
+
+    # phase 10
+    if 10 in phases:
+        t10 = time.perf_counter()
+        sequence = phase_sequence(torch, port, args.seed, dev)
+        sequence["phase_s"] = time.perf_counter() - t10
+        for entry in kernels:
+            entry["launches_sequence"] = \
+                sequence["launches"][entry["name"][:2]]
+            entry["lastfm"]["launches"] = \
+                sequence["launches_lastfm_d32"][entry["name"][:2]]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
              else "")
           + (f"phase 9 (visual): {visual['phase_s']:.1f} s; " if visual
              else "")
+          + (f"phase 10 (sequence): {sequence['phase_s']:.1f} s; "
+             if sequence else "")
           + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
@@ -2614,7 +3305,8 @@ def main(argv=None):
             {"card": smi, "phases": sorted(phases), "build_s": build_s,
              "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
-             "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual},
+             "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual,
+             "sequence": sequence},
             indent=1))
     if serve:
         print(json.dumps({"requests": {name: {
@@ -2706,6 +3398,39 @@ def main(argv=None):
             | ({"touched_norms": visual[name]["touched_norms"]}
                if "touched_norms" in visual[name] else {})
             for name in VISUAL_MODELS}}))
+    if sequence:
+        print(json.dumps({"sequence": {
+            m: sequence[m] for m in ("launches", "launches_lastfm_d32",
+                                     "tf32_caught", "data", "popularity",
+                                     "phase_s", "setup_s")} | {
+            name: {"feed": sequence[name]["feed"],
+                   "host_fed": {m: sequence[name]["host_fed"][m] for m in (
+                       "steps_per_s", "examples_per_s",
+                       "device_busy_ms_per_step", "device_ops_per_step",
+                       "idle_share", "mean_loss_by_call", "test")},
+                   "test_step0": sequence[name]["test_step0"],
+                   "card_vs_cpu": {c["dtype"]: c["max_abs_param_diff"]
+                                   for c in sequence[name]["card_vs_cpu"]},
+                   "max_memory_allocated_gb":
+                       sequence[name]["max_memory_allocated_gb"],
+                   "seconds": sequence[name]["seconds"]}
+            | ({"device_sampled": {m: sequence[name]["device_sampled"][m]
+                                   for m in ("steps", "steps_per_s",
+                                             "examples_per_s",
+                                             "mean_loss_by_call", "test")},
+                "sampled_softmax_card_vs_cpu":
+                    sequence[name]["sampled_softmax_card_vs_cpu"]}
+               if "device_sampled" in sequence[name] else {})
+            | ({"gradient_card_vs_cpu": {
+                c["dtype"]: {n: r["max_scaled_diff"]
+                             for n, r in c["by_param"].items()}
+                for c in sequence[name]["gradient_card_vs_cpu"]}}
+               if "gradient_card_vs_cpu" in sequence[name] else {})
+            | ({"serving": {m: sequence[name]["serving"][m] for m in (
+                "recall_vs_exact", "score_max_abs_err", "k1k2_vs_plain",
+                "k3", "calls", "p50_ms")}}
+               if "serving" in sequence[name] else {})
+            for name in SEQUENCE_MODELS}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,13 @@ And the visual family and the user-feature PMFs: VBPR, VisualBPR,
 VisualCML, VisualPMF, VisualGMF, ConcatVisualBPR, UserPMF and
 UserVisualPMF, with `FeatureJoinedSampler` (`Dataset.pairwise(joins=)`),
 the fusions and the Tradesy / Amazon-book loaders.
+
+And the sequence models: RNNRec (GRU or LSTM, `modules/rnn.py`; full or
+sampled softmax), VanillaYouTubeRec and YouTubeRec, with
+`masked_mean_pool`, the softmax losses, `TemporalSampler`,
+`TemporalEvaluationSampler`, `Dataset.temporal` /
+`temporal_evaluation`, the on-device `DeviceTemporalSampler`,
+`Trainer.evaluate_temporal` and the LastFM loader.
 """
 
 __version__ = "0.1.0"
@@ -57,8 +64,9 @@ from openrec_tpu_torch.convert import (
     sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
 from openrec_tpu_torch.models import (
     BPR, CDL, CML, DLRM, GMF, NBPR, PMF, UCML, VBPR, WCML, WRMF,
-    ConcatVisualBPR, FactorRecommender, MLPRec, NeuMF, Recommender, UserPMF,
-    UserVisualPMF, VisualBPR, VisualCML, VisualGMF, VisualPMF, criteo_dlrm)
+    ConcatVisualBPR, FactorRecommender, MLPRec, NeuMF, Recommender, RNNRec,
+    UserPMF, UserVisualPMF, VanillaYouTubeRec, VisualBPR, VisualCML,
+    VisualGMF, VisualPMF, YouTubeRec, criteo_dlrm)
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
@@ -68,14 +76,15 @@ from openrec_tpu_torch.metrics import (
     numpy_eval)
 from openrec_tpu_torch.serving import CachedDotProductScorer
 from openrec_tpu_torch.modules import (
-    MLP, SDAE, average_fusion, censor_max_norm, censor_norm, concat_fusion,
-    embedding_init, embedding_lookup, losses, second_order_interaction)
+    GRU, LSTM, MLP, SDAE, average_fusion, censor_max_norm, censor_norm,
+    concat_fusion, embedding_init, embedding_lookup, losses,
+    masked_mean_pool, second_order_interaction)
 from openrec_tpu_torch.data import (
     Dataset, DevicePairwiseSampler, DevicePointwiseSampler,
-    EvaluationSampler, FeatureJoinedSampler, InteractionStore,
-    NPairwiseSampler, PairwiseSampler,
+    DeviceTemporalSampler, EvaluationSampler, FeatureJoinedSampler,
+    InteractionStore, NPairwiseSampler, PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
-    StratifiedPointwiseSampler)
+    StratifiedPointwiseSampler, TemporalEvaluationSampler, TemporalSampler)
 from openrec_tpu_torch.training import (Trainer, adam, keras_adam,
                                         lazy_adagrad, lazy_adam)
 from openrec_tpu_torch.training.sparse import (

@@ -6,9 +6,12 @@ Counterpart of `openrec_tpu/data/dataset.py`: `Dataset.__init__` builds an
 `Prefetcher` over a sampler seeded with the dataset's seed (each worker
 folds its id into it; `pairwise(joins=...)` wraps its sampler in a
 `FeatureJoinedSampler`), `n_pairwise` one over K negatives per positive
-(NBPR, WCML), and `evaluation` an `EvaluationSampler`. The explicit and
-temporal strategies of the JAX package come with the models that use
-them.
+(NBPR, WCML), `temporal` one over history windows and next-item labels
+(the sequence models; a store built with `sortby`, e.g. "ts"), and
+`evaluation` an `EvaluationSampler`, `temporal_evaluation` a
+`TemporalEvaluationSampler`; both temporal methods take `joins=` (the
+user features of YouTubeRec). The explicit strategy of the JAX package
+comes with the model that uses it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from openrec_tpu_torch.data.samplers import (
     EvaluationSampler, FeatureJoinedSampler, NPairwiseSampler,
     PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
-    StratifiedPointwiseSampler)
+    StratifiedPointwiseSampler, TemporalEvaluationSampler, TemporalSampler)
 from openrec_tpu_torch.data.store import InteractionStore
 
 
@@ -78,8 +81,34 @@ class Dataset:
         s = RandomPointwiseSampler(self.store, batch_size, seed=self._seed)
         return Prefetcher(s, num_workers=num_parallel_calls, take=take)
 
+    def temporal(self, batch_size, max_seq_len, num_parallel_calls=1,
+                 take=None, joins=()):
+        """Infinite (window, seq_len, next-item label, user) batches;
+        joins as for `pairwise`, e.g. ("user_id", gender, "user_gender")."""
+        s = TemporalSampler(self.store, batch_size, max_seq_len,
+                            seed=self._seed)
+        if joins:
+            s = FeatureJoinedSampler(s, joins)
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
     def evaluation(self, batch_size, excl_datasets=(), device_masks=False):
         return EvaluationSampler(
             self.store, batch_size,
             excl_stores=[d.store for d in excl_datasets],
             device_masks=device_masks)
+
+    def temporal_evaluation(self, batch_size, max_seq_len, joins=()):
+        """A `TemporalEvaluationSampler`; with joins its `epoch()` adds
+        `batch[out_key] = feats[batch[id_key]]` to every batch (padding
+        rows join user 0's row)."""
+        s = TemporalEvaluationSampler(self.store, batch_size, max_seq_len)
+        if joins:
+            epoch = s.epoch
+
+            def joined_epoch():
+                for batch in epoch():
+                    for id_key, feats, out_key in joins:
+                        batch[out_key] = feats[batch[id_key]]
+                    yield batch
+            s.epoch = joined_epoch
+        return s

@@ -1,9 +1,10 @@
 """On-device batch sampling.
 
-Counterpart of `openrec_tpu/data/device_sampler.py:30-209`: the
+Counterpart of `openrec_tpu/data/device_sampler.py:30-256`: the
 interaction index lives in device memory (a bit array, or the sorted
-composite keys, plus the flat record arrays) and batches are drawn on
-the card, so the host sends nothing per step:
+composite keys, plus the flat record arrays; for sequences the users'
+time-sorted CSR) and batches are drawn on the card, so the host sends
+nothing per step:
 
   - positive picks: uniform records (with replacement);
   - negatives: uniform over the catalog (`DevicePairwiseSampler`: items
@@ -11,7 +12,9 @@ the card, so the host sends nothing per step:
     with `REJECT_ROUNDS` fixed resampling rounds against the membership
     index. The residual chance that a negative is a positive is
     density^(rounds+1): below 1e-13 at CiteULike's density (~2e-3) and 4
-    rounds.
+    rounds;
+  - sequence windows (`DeviceTemporalSampler`): a warm user, a uniform
+    position in [1, count - 1] and the zero-padded window before it.
 
 Random numbers come from a `torch.Generator` on the sampler's device
 (Philox on the card), not JAX's threefry: the streams differ from the
@@ -174,3 +177,57 @@ class DevicePointwiseSampler(_DeviceSampler):
         return {"user_id": torch.cat([self._rec_users[idx], nu]),
                 "item_id": torch.cat([self._rec_items[idx], ni]),
                 "label": labels}
+
+
+class DeviceTemporalSampler:
+    """On-device sequence windows: the host `TemporalSampler`'s semantics
+    (`samplers.py`) with the time-sorted CSR (pointers, counts, items) in
+    device memory. `sample(generator)` draws the users [B], then the
+    positions as 1 + randint(0, 2^31 - 1) % (count - 1) (the host draws
+    its integer below 2^62; the bias of either is O(count / 2^31)), and
+    gathers the left-aligned window of up to max_seq_len items before the
+    position, zero-padded, and the item at it as the label. Int32
+    tensors; no `sample_stacked`, so `Trainer.train_steps_device` draws
+    each step's batch inside its K-step loop."""
+
+    def __init__(self, store, batch_size: int, max_seq_len: int,
+                 device=None):
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.max_seq_len = int(max_seq_len)
+        counts = store.user_positive_counts()
+        seq_users = np.flatnonzero(counts > 1)
+        if len(seq_users) == 0:
+            raise ValueError("No user has more than one interaction.")
+        ptr, _ = store.positive_csr()
+        items = (store._csr_items_sorted
+                 if store._csr_items_sorted is not None
+                 else store._csr_items)
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(
+                self.device)
+        self._seq_users, self._counts = put(seq_users), put(counts)
+        self._ptr, self._items = put(ptr), put(items)
+        self._offs = torch.arange(self.max_seq_len, dtype=torch.int32,
+                                  device=self.device)
+
+    def sample(self, generator):
+        """One batch: seq_item_id [B, L], seq_len, label, user_id [B]."""
+        B = self.batch_size
+        pick = torch.randint(0, self._seq_users.shape[0], (B,),
+                             generator=generator, device=self.device)
+        users = self._seq_users[pick]
+        cnt = self._counts[users]
+        draw = torch.randint(0, 2 ** 31 - 1, (B,), generator=generator,
+                             device=self.device, dtype=torch.int32)
+        predict_pos = 1 + draw % (cnt - 1)
+        lo = self._ptr[users]
+        seq_len = torch.clamp(predict_pos, max=self.max_seq_len)
+        start = predict_pos - seq_len
+        idx = lo[:, None] + start[:, None] + self._offs[None, :]
+        valid = self._offs[None, :] < seq_len[:, None]
+        idx = torch.where(valid, idx, lo[:, None])     # a safe gather index
+        seq = torch.where(valid, self._items[idx], 0)
+        return {"seq_item_id": seq, "seq_len": seq_len,
+                "label": self._items[lo + predict_pos], "user_id": users}

@@ -1,7 +1,7 @@
 """Dataset loaders: CiteULike, Tradesy, Amazon-book and Criteo, their file
 layouts and their synthetic stand-ins.
 
-Counterpart of `openrec_tpu/data/loaders.py:22-50, 71-207`:
+Counterpart of `openrec_tpu/data/loaders.py:22-207`:
 `load_citeulike` reads `user_data_{train,val,test}.npy` structured arrays
 (user_id/item_id fields) from `<dataset_folder>/citeulike/`;
 `load_tradesy` the same from `<dataset_folder>/tradesy/` plus
@@ -17,9 +17,12 @@ features (`book_features_update.mem`, shape (total_items, 4096) unless
 X_cat [N, 26], y, counts) and splits it 6/7 train, 1/14 val, 1/14 test
 with the dense features through log(x + 1); `write_synthetic_criteo_npz`
 writes that file's layout and `synthetic_criteo` draws the split arrays
-directly, with labels a model can learn. Every function is bit-identical
-to the JAX package's for the same seed. LastFM comes with the sequence
-models.
+directly, with labels a model can learn. `load_lastfm` reads
+`<dataset_folder>/lastfm/lastfm_{train,test}.npy` (records with a `ts`
+field), aliases `val_data` to the test split (the reference has no val
+split) and adds `user_features` (`user_feature.npy`: user_gender,
+user_geo) where that file is present. Every function is bit-identical
+to the JAX package's for the same seed.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 CITEULIKE = {"total_users": 5551, "total_items": 16980}
 TRADESY = {"total_users": 19243, "total_items": 165906}
 AMAZON_BOOK = {"total_users": 99473, "total_items": 450166}
+LASTFM = {"total_users": 992, "total_items": 14598}
 
 
 def _load_split(folder, name):
@@ -52,6 +56,22 @@ def load_tradesy(dataset_folder="dataset/"):
     raw["item_features"] = np.load(
         os.path.join(dataset_folder, "tradesy", "item_features.npy")
     ) / 32.671101          # the reference's normalisation (dataloader.py:40)
+    return raw
+
+
+def load_lastfm(dataset_folder="dataset/"):
+    """The reference's layout (tf1_examples/rnn_rec_lastfm.py:9-10,
+    youtube_rec_lastfm.py:8-10): lastfm_{train,test}.npy, and
+    user_feature.npy (rows indexed by user_id) when present; `val_data`
+    is the test split."""
+    raw = dict(LASTFM)
+    folder = os.path.join(dataset_folder, "lastfm")
+    raw["train_data"] = np.load(os.path.join(folder, "lastfm_train.npy"))
+    raw["test_data"] = np.load(os.path.join(folder, "lastfm_test.npy"))
+    raw["val_data"] = raw["test_data"]
+    feature_path = os.path.join(folder, "user_feature.npy")
+    if os.path.exists(feature_path):
+        raw["user_features"] = np.load(feature_path)
     return raw
 
 

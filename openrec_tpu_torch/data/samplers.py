@@ -1,6 +1,6 @@
 """Seeded, vectorized host batch samplers.
 
-Counterpart of `openrec_tpu/data/samplers.py:34-341, 458-591`: the base
+Counterpart of `openrec_tpu/data/samplers.py:34-341, 363-591`: the base
 `BatchSampler` with its per-sampler epoch stream, `PairwiseSampler`
 (user, positive, uniform negative), the pointwise samplers
 (`StratifiedPointwiseSampler`, `PerPosStratifiedPointwiseSampler`,
@@ -9,12 +9,16 @@ Counterpart of `openrec_tpu/data/samplers.py:34-341, 458-591`: the base
 `device_masks=True`), and `NPairwiseSampler` (user, positive, K
 negatives: `samplers.py:225-238`), and `FeatureJoinedSampler`
 (`samplers.py:432-455`: a base sampler's batches with feature rows joined
-by id). The same seed gives bit-identical batches to the
+by id), and the sequence samplers `TemporalSampler` (`:363-402`: a
+uniform warm user, a uniform position in [1, count - 1] of the user's
+time-sorted history, the window of up to max_seq_len items before it,
+left-aligned and zero-padded, and the item at it as the label) and
+`TemporalEvaluationSampler` (`:405-429`: every warm user's last item
+held out, one epoch). The same seed gives bit-identical batches to the
 JAX package on every path, the numpy paths (`use_native=False`) and the
 C++ feeder (`openrec_tpu_torch/native/`, the default of `PairwiseSampler`
 and `StratifiedPointwiseSampler` whenever it builds, as in the JAX
-package). The explicit and temporal samplers come with the models that
-use them.
+package). The explicit sampler comes with the model that uses it.
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -325,6 +329,79 @@ class RandomPointwiseSampler(BatchSampler):
         labels = self.store.is_positive(users, items).astype(np.float32)
         return {"user_id": users.astype(np.int32),
                 "item_id": items.astype(np.int32), "label": labels}
+
+
+class TemporalSampler(BatchSampler):
+    """Time-sorted history window -> next-item label, zero-padded to
+    max_seq_len (reference tf1 temporal_sampler.py:5-29). Needs a store
+    built with `sortby` (its `_csr_items_sorted`). Users with fewer than
+    two records are never drawn."""
+
+    def __init__(self, store, batch_size, max_seq_len, seed=0):
+        super().__init__(store, batch_size, seed)
+        self.max_seq_len = int(max_seq_len)
+        counts = store.user_positive_counts()
+        self._seq_users = np.flatnonzero(counts > 1)
+        if len(self._seq_users) == 0:
+            raise ValueError("No user has more than one interaction.")
+
+    def _windows(self, users, predict_pos):
+        """Left-aligned padded windows ending just before predict_pos."""
+        L = self.max_seq_len
+        ptr, _ = self.store.positive_csr()
+        items_sorted = self.store._csr_items_sorted
+        lo = ptr[users]
+        seq_len = np.minimum(predict_pos, L).astype(np.int32)
+        start = predict_pos - seq_len
+        idx = lo[:, None] + start[:, None] + np.arange(L)[None, :]
+        valid = np.arange(L)[None, :] < seq_len[:, None]
+        idx = np.where(valid, idx, lo[:, None])  # a safe gather index
+        seq = items_sorted[idx].astype(np.int32)
+        seq[~valid] = 0
+        return seq, seq_len
+
+    def sample(self):
+        counts = self.store.user_positive_counts()
+        users = self._seq_users[self.rng.integers(0, len(self._seq_users),
+                                                  size=self.batch_size)]
+        # predict_pos uniform in [1, len - 1] (temporal_sampler.py:22)
+        predict_pos = 1 + (self.rng.integers(0, 1 << 62, self.batch_size)
+                           % (counts[users] - 1))
+        seq, seq_len = self._windows(users, predict_pos)
+        ptr, _ = self.store.positive_csr()
+        labels = self.store._csr_items_sorted[ptr[users] + predict_pos]
+        return {"seq_item_id": seq, "seq_len": seq_len,
+                "label": labels.astype(np.int32),
+                "user_id": users.astype(np.int32)}
+
+
+class TemporalEvaluationSampler(TemporalSampler):
+    """Last-item holdout per warm user (reference
+    temporal_evaluation_sampler.py): `epoch()` walks the users with two or
+    more records once, in id order; the last batch is padded with rows of
+    seq_len 0, user 0, label 0 and `valid` False."""
+
+    def epoch(self):
+        counts = self.store.user_positive_counts()
+        users = self._seq_users
+        bs = self.batch_size
+        for i in range(0, len(users), bs):
+            chunk = users[i:i + bs]
+            pad = bs - len(chunk)
+            predict_pos = counts[chunk] - 1
+            seq, seq_len = self._windows(chunk, predict_pos)
+            ptr, _ = self.store.positive_csr()
+            labels = self.store._csr_items_sorted[ptr[chunk] + predict_pos]
+            valid = np.ones(len(chunk), dtype=bool)
+            if pad:
+                seq = np.pad(seq, ((0, pad), (0, 0)))
+                seq_len = np.pad(seq_len, (0, pad))
+                labels = np.pad(labels, (0, pad))
+                chunk = np.pad(chunk, (0, pad))
+                valid = np.pad(valid, (0, pad))
+            yield {"seq_item_id": seq, "seq_len": seq_len,
+                   "label": labels.astype(np.int32),
+                   "user_id": chunk.astype(np.int32), "valid": valid}
 
 
 class FeatureJoinedSampler(BatchSampler):

@@ -12,3 +12,5 @@ from openrec_tpu_torch.models.visual import (VBPR, ConcatVisualBPR,
                                              VisualBPR, VisualCML, VisualGMF,
                                              VisualPMF)
 from openrec_tpu_torch.models.user_feature import UserPMF, UserVisualPMF
+from openrec_tpu_torch.models.sequence import (RNNRec, VanillaYouTubeRec,
+                                               YouTubeRec)

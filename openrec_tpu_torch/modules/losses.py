@@ -5,15 +5,23 @@ the dot-product hinge (`:51-60`), UCML's euclidean hinge (`:63-75`), the
 multi-negative losses of NBPR and WCML with their WARP rank weight
 (`:78-118`), WRMF's and PMF's pointwise MSE (`:121-128`), DLRM's
 `mse_loss` / `bce_loss` (`:131-140`) and the NCF family's
-`bce_logits_loss` (`:143-148`). Sums stay sums and means stay means, as
+`bce_logits_loss` (`:143-148`), and the sequence models' softmax losses
+(`:153-236`): `softmax_ce_loss` over the full catalog, TF's log-uniform
+candidate law (`log_uniform_logprob`, `log_uniform_sample`) and
+`sampled_softmax_loss`. Sums stay sums and means stay means, as
 there. The hardest of K negatives is taken with `torch.amin` /
 `torch.amax`, which split the gradient evenly among tied entries as
 `jnp.min` / `jnp.max` do (`torch.min(x, dim)` gives all of it to one
 index); ties are routine, since the K negatives are drawn with
-replacement. The softmax losses come with the models that use them.
+replacement. The sampled softmax draws its candidates from a
+`torch.Generator` (Philox on the card), not from JAX's threefry: the law
+is the same, the bits are not; `log_uniform_from_uniforms` is the closed
+form applied to given uniforms, which gives JAX's ids for JAX's uniforms.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -135,3 +143,102 @@ def bce_logits_loss(label, logit, reduction="mean"):
     per = torch.clamp(logit, min=0.0) - logit * label \
         + torch.log1p(torch.exp(-torch.abs(logit)))
     return torch.mean(per) if reduction == "mean" else torch.sum(per)
+
+
+# ----------------------------------------------------------------- softmax
+
+def softmax_ce_loss(logits, labels, reduction="mean"):
+    """Sparse softmax cross-entropy over the full catalog (tf1
+    mlp_softmax.py:36-40, rnn_softmax.py:22-26)."""
+    logp = F.log_softmax(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    per = -logp.gather(1, labels[:, None])[:, 0]
+    return torch.mean(per) if reduction == "mean" else torch.sum(per)
+
+
+@functools.lru_cache(maxsize=64)
+def _f32_log(x: float) -> float:
+    """log(x) computed in float32 (as JAX computes its constants), as a
+    Python float that a float32 tensor op takes without rounding."""
+    return torch.log(torch.tensor(x, dtype=torch.float32)).item()
+
+
+def log_uniform_logprob(ids, range_max: int):
+    """log P(id) under TF's log-uniform (Zipf) candidate law,
+    P(c) = (log(c + 2) - log(c + 1)) / log(range_max + 1), in float32."""
+    c = torch.as_tensor(ids).to(torch.float32)
+    return torch.log(torch.log1p(1.0 / (c + 1.0))) \
+        - _f32_log(_f32_log(float(range_max) + 1.0))
+
+
+def log_uniform_from_uniforms(u, range_max: int):
+    """The inverse CDF of TF's RangeSampler::LogUniform on float32
+    uniforms u in [0, 1): floor(exp(u * log(R + 1))) - 1, clipped to
+    [0, R - 1], as int32."""
+    c = torch.floor(torch.exp(u * _f32_log(float(range_max) + 1.0))) - 1.0
+    return torch.clamp(c.to(torch.int32), 0, range_max - 1)
+
+
+def log_uniform_sample(num_sampled: int, range_max: int,
+                       generator: torch.Generator | None = None,
+                       device=None):
+    """`num_sampled` ids drawn with replacement from the log-uniform law:
+    float32 uniforms from `generator` through the closed form."""
+    u = torch.rand(num_sampled, generator=generator, device=device)
+    return log_uniform_from_uniforms(u, range_max)
+
+
+def sampled_softmax_loss(item_table, item_bias, hidden, labels,
+                         num_sampled: int, generator=None,
+                         distribution: str = "log_uniform",
+                         sampled_values=None):
+    """TF's sampled softmax (tf1 rnn_softmax.py:24-26): softmax CE over
+    [true class | num_sampled candidates drawn with replacement], each
+    logit less log of its expected count S * P(class), candidates equal
+    to a row's true class set to -1e9 (accidental hits).
+
+    distribution: 'log_uniform' (TF's default; ids ranked by falling
+    popularity) or 'uniform'. sampled_values: optional (sampled_ids [S],
+    true_expected_count [B], sampled_expected_count [S]) that replaces
+    the draw, as TF's argument does. Otherwise the candidates are drawn
+    from `generator` on the tables' device.
+
+    item_table: [I, D]; item_bias: [I] or [I, 1]; hidden: [B, D];
+    labels: [B] int."""
+    total_items = item_table.shape[0]
+    dev = item_table.device
+    labels = torch.as_tensor(labels, device=dev).long()
+    if sampled_values is not None:
+        sampled, true_exp, samp_exp = sampled_values
+        sampled = torch.as_tensor(sampled, device=dev).long()
+        true_logq = torch.log(torch.as_tensor(true_exp, device=dev,
+                                              dtype=torch.float32))
+        samp_logq = torch.log(torch.as_tensor(samp_exp, device=dev,
+                                              dtype=torch.float32))
+    elif distribution == "log_uniform":
+        sampled = log_uniform_sample(num_sampled, total_items, generator,
+                                     dev).long()
+        log_s = _f32_log(float(num_sampled))
+        true_logq = log_s + log_uniform_logprob(labels, total_items)
+        samp_logq = log_s + log_uniform_logprob(sampled, total_items)
+    elif distribution == "uniform":
+        sampled = torch.randint(0, total_items, (num_sampled,),
+                                generator=generator, device=dev)
+        true_logq = samp_logq = torch.log(torch.tensor(
+            num_sampled / total_items, dtype=torch.float32, device=dev))
+    else:
+        raise ValueError(f"unknown candidate distribution {distribution!r}")
+    bias = item_bias.reshape(-1)
+
+    true_w = item_table.index_select(0, labels)                 # [B, D]
+    true_logit = torch.sum(hidden * true_w, dim=-1) + bias[labels]
+    sampled_w = item_table.index_select(0, sampled)             # [S, D]
+    sampled_logit = hidden @ sampled_w.T + bias[sampled]        # [B, S]
+
+    true_logit = true_logit - true_logq
+    sampled_logit = sampled_logit - samp_logq.reshape(1, -1)
+    hit = sampled[None, :] == labels[:, None]
+    sampled_logit = torch.where(hit, -1e9, sampled_logit)
+
+    logits = torch.cat([true_logit[:, None], sampled_logit], dim=1)
+    return softmax_ce_loss(logits, torch.zeros_like(labels))

@@ -88,12 +88,14 @@ class MLP(nn.ModuleList):
             self.append(layer)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layers: Optional[int] = None) -> torch.Tensor:
         """Weights are cast to x's dtype (bf16 compute keeps fp32
         parameters). Dropout in training draws from `generator`, else
-        from the module's own."""
+        from the module's own. `layers` stops after that many layers (a
+        hidden layer's output, its dropout included)."""
         n = len(self)
-        for i, layer in enumerate(self):
+        for i, layer in enumerate(list(self)[:layers]):
             x = x @ layer.w.to(x.dtype)
             if hasattr(layer, "b"):
                 x = x + layer.b.to(x.dtype)

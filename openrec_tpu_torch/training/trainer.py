@@ -13,7 +13,8 @@ Ported: `train_step`, `train_step_multi`, `train_step_multi_flat`,
 `train(...)` with `steps_per_call`, every `feed` mode, `eval_interval`,
 `save_interval`, `defer_metrics`, `scorer=` and a JSONL `log_file`;
 `evaluate` on mask batches, id batches (`device_masks=True`), through a
-`CachedDotProductScorer` and with `dump_path`; `save` / `restore` in the
+`CachedDotProductScorer` and with `dump_path`; `evaluate_temporal`, the
+next-item ranking of the sequence models; `save` / `restore` in the
 JAX package's checkpoint format; warm start from `init_model_dir`;
 `profile` through `torch.profiler`.
 
@@ -25,13 +26,13 @@ optax-form `adam(lr)`) on the other parameters only.
 Every step of every entry point passes the trainer's `torch.Generator`
 to `model.loss(batch, generator=...)` (JAX passes a per-step rng,
 `trainer.py:103-105, 119-202`): a model whose loss draws randomness
-(MLPRec's, NeuMF's and CDL's dropout) draws from it, a model that draws
+(MLPRec's, NeuMF's, CDL's and the YouTube models' dropout, RNNRec's
+sampled-softmax candidates) draws from it, a model that draws
 nothing leaves it where it was, so device-sampled streams do not move.
 The same generator drives on-device sampling.
 
-Not in this slice, each coming with the model that needs it:
-`evaluate_temporal`, the per-record regression eval, and
-`update_interval` / `update_fn`.
+Not in this slice, each coming with the model that needs it: the
+per-record regression eval, and `update_interval` / `update_fn`.
 
 Behaviours kept from the JAX package and tested: `feed='auto'` reads a
 batch as stacked whenever every value has ndim >= 2 and leading dim k;
@@ -48,6 +49,7 @@ import os
 import sys
 import tempfile
 import time
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -342,6 +344,36 @@ class Trainer:
         if defer_metrics:
             return acc.result_device() if acc._sums else {}
         return acc.result() if acc is not None else {}
+
+    @torch.no_grad()
+    def evaluate_temporal(self, eval_sampler, at=(50, 100)) -> dict:
+        """Next-item evaluation for the sequence models
+        (`openrec_tpu/training/trainer.py:659-697`): one `epoch()` of a
+        `TemporalEvaluationSampler`; per user, rank = the number of items
+        that score strictly above the held-out label, then AUC = (I - 1 -
+        rank) / (I - 1), Recall@k = [rank < k] and NDCG@k = [rank < k] /
+        log2(rank + 2), averaged over the `valid` users."""
+        at = tuple(at)
+        acc = DictMean({"AUC": [], "Recall": [len(at)],
+                        "NDCG": [len(at)]})
+        for batch in eval_sampler.epoch():
+            feed = to_device({k: v for k, v in batch.items()
+                              if k not in ("label", "valid")}, self.device)
+            labels = torch.as_tensor(batch["label"],
+                                     device=self.device).long()
+            pred = self.model.score(feed)                     # [B, I]
+            I = pred.shape[1]
+            label_score = pred.gather(1, labels[:, None])
+            rank = torch.sum(pred > label_score, dim=1).float()
+            out = {"AUC": (I - 1 - rank) / (I - 1),
+                   "Recall": torch.stack([(rank < k).float() for k in at],
+                                         dim=1),
+                   "NDCG": torch.stack(
+                       [(rank < k) / (torch.log(rank + 2.0) / math.log(2.0))
+                        for k in at], dim=1)}
+            acc.update_state({k: v.cpu().numpy() for k, v in out.items()},
+                             valid=batch.get("valid"))
+        return acc.result()
 
     # ------------------------------------------------------------------ #
 

@@ -19,7 +19,7 @@ from openrec_tpu.ops.bucketed_topk import (
 import chip_smoke
 from openrec_tpu_torch.ops.bucketed_topk import (
     bucket_geometry, bucket_max2_scores, bucket_max_scores,
-    bucket_score_topk, f32_plan, mma_plan)
+    bucket_score_topk, choose_bucket, f32_plan, mma_plan)
 from openrec_tpu_torch.ops.topk import fused_geometry
 
 torch.set_num_threads(1)
@@ -303,3 +303,17 @@ def test_f32_plan_k3_bound_pass():
     plan = f32_plan(256, 16_980, 50, k3.bucket, False, n_split=k3.k1_split)
     assert (k3.bucket, k3.k1_split) == (16, 2)
     assert (plan.stages, plan.smem, plan.L) == (4, 69_024, k3.L)
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.K1K2_CASES
+                                  if c[0].startswith(("lastfm", "citeulike",
+                                                      "tradesy", "amazon"))],
+                         ids=lambda c: c[0])
+def test_serving_cases_sit_at_their_methods_buckets(case):
+    """Phase 2's serving shapes sit at the bucket `bucket_score_topk`
+    picks for the method of their kernel (K1 `pallas` at 0.99, K2
+    `pallas2` at 0.995, k 100): LastFM's 2 and 8."""
+    name, _, I, _, _, bucket, _ = case
+    top2 = "K2" in name
+    assert bucket == choose_bucket(I, 100, recall_target=0.995 if top2
+                                   else 0.99, per_bucket=2 if top2 else 1)

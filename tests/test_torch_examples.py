@@ -16,7 +16,8 @@ EXAMPLES = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
                   if f.endswith(".py") and f != "__init__.py")
 # the JAX package's examples that the port carries so far
 PORTED = ["bpr_citeulike", "bpr_device_sampled", "pmf_citeulike",
-          "serving_retrieval", "ucml_citeulike", "vbpr_tradesy"]
+          "rnn_rec_lastfm", "serving_retrieval", "ucml_citeulike",
+          "vanilla_youtube_rec_lastfm", "vbpr_tradesy", "youtube_rec_lastfm"]
 
 
 def test_every_example_is_covered():
@@ -39,7 +40,7 @@ def test_example_smoke(name, tmp_path):
     assert proc.returncode == 0, f"{name} failed:\n{proc.stdout[-4000:]}"
     if name == "serving_retrieval":
         assert proc.stdout.count("top-3 of user") == 3
-    elif name == "vbpr_tradesy":
+    elif name == "vbpr_tradesy" or name.endswith("_lastfm"):
         # its own loop prints one line an eval, as the JAX script does
         assert "Iter 30  loss " in proc.stdout and "AUC=" in proc.stdout
     else:

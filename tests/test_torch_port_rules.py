@@ -163,3 +163,29 @@ def test_zoo_entry_points_need_cuda_or_explicit_cpu(name):
     tensors = (list(made.parameters()) if isinstance(made, torch.nn.Module)
                else [made._rec_users])
     assert all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("name", ["RNNRec", "VanillaYouTubeRec",
+                                  "YouTubeRec", "DeviceTemporalSampler"])
+def test_sequence_entry_points_need_cuda_or_explicit_cpu(name):
+    """The sequence models and the on-device temporal sampler default to
+    CUDA like every other entry point, and run on the CPU when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import openrec_tpu_torch as port
+    from openrec_tpu_torch.data import InteractionStore
+    if name == "DeviceTemporalSampler":
+        store = InteractionStore(np.array([(0, 1, 1), (0, 2, 2)], dtype=[
+            ("user_id", np.int32), ("item_id", np.int32),
+            ("ts", np.int64)]), 4, 4, sortby="ts")
+        args, kw = (store, 8, 3), {}
+    elif name == "RNNRec":
+        args, kw = (5, 4, 3, 2), {"softmax_samples": 2}
+    else:
+        args, kw = (5, 4, 3), {}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(port, name)(*args, **kw)
+    made = getattr(port, name)(*args, **kw, device="cpu")
+    tensors = (list(made.parameters()) if isinstance(made, torch.nn.Module)
+               else [made._items])
+    assert all(t.device.type == "cpu" for t in tensors)
