@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,4    # ... and time them
     python3 chip_smoke.py --phases 1,9  # the visual family alone
     python3 chip_smoke.py --phases 1,10 # the sequence models alone
+    python3 chip_smoke.py --phases 1,11 # ItrMLP at Netflix width alone
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
@@ -21,13 +22,16 @@ failure raises and exits non-zero:
      twin), no bias, and the serving shapes (Amazon; CiteULike; VBPR's
      Tradesy bf16 D = 100, whose 200-byte rows pad to Dp 112 and start
      every other one 8-byte aligned; LastFM's fp32 D = 32 with a bias and
-     D = 50 without, phase 10's); for K3 k in {1, 100,
+     D = 50 without, phase 10's; Netflix's fp32 D = 20, 80-byte rows,
+     phase 11's, with D = 20 twins and 4-byte aligned rows); for K3 k in
+     {1, 100,
      128, 129, 1000}, k == I on a 300-item catalog, B and I off the
      kernel's tiling, duplicated item rows (exact ties), tables that do not
      start on a 16-byte boundary, all-equal scores (K3's rescan branch),
      a catalog of fewer than 8*Kb items, and the Amazon, CiteULike,
-     Tradesy (bf16 D = 100: tau's scalar item_score path) and LastFM
-     shapes (fp32 D = 32; D = 50 without a bias). Values
+     Tradesy (bf16 D = 100: tau's scalar item_score path), LastFM
+     (fp32 D = 32; D = 50 without a bias) and Netflix shapes (fp32 D =
+     20, and D = 20 off the tiling). Values
      within rtol=atol=1e-5; an id may differ only where the two picks
      score within that tolerance (a different summation order); K2's
      second slot as id sets. Every user must have at least min(k, I) K3
@@ -49,11 +53,12 @@ failure raises and exits non-zero:
      operations at the peak for the input type), with its device time by
      kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16),
      at the CiteULike shape (fp32), at VBPR's Tradesy shape (256 x
-     165,906 x 100, bf16) and at RNNRec's LastFM shape (256 x 14,598 x
-     32, fp32), each at the bucket its method picks there, K3 at the
-     CiteULike retrieval shape of phase 5, at the Amazon, Tradesy and
-     LastFM shapes, each of K3's four launches (K1 bound pass, tau,
-     filter, final) on its own too.
+     165,906 x 100, bf16), at RNNRec's LastFM shape (256 x 14,598 x
+     32, fp32) and at ItrMLP's Netflix shape (256 x 17,770 x 20, fp32,
+     with a bias), each at the bucket its method picks there, K3 at the
+     CiteULike retrieval shape of phase 5, at the Amazon, Tradesy,
+     LastFM and Netflix shapes, each of K3's four launches (K1 bound
+     pass, tau, filter, final) on its own too.
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
@@ -208,6 +213,31 @@ failure raises and exits non-zero:
      profiled call: 1 step for RNNRec, 10 for the others), peak memory,
      seconds by part.
 
+ 11. ItrMLP at Netflix width (480,189 users x 17,770 movies) on
+     synthetic time-ordered ratings from --seed (`netflix_data`: 2,000,000
+     records, uniform users and items, label the sigmoid of a rank-8
+     affinity computed per record; the first 90 % train, the first
+     51,200 held-out records evaluate), at examples/itr_mlp.py's
+     configuration (dim 20, user and item MLPs 30-30-20 with batch norm,
+     batch 256, lazy_adam lr 1e-3): identity pretraining (2,000 steps of
+     32 per MLP), then 1,200 host-fed steps through Trainer.train on
+     Dataset.explicit(chronological=True) with the tables
+     forward-propagated every 200 steps (`update_interval`) and the
+     per-record MSE eval every 600 (`ITR` gives the depths and why).
+     Checks: losses finite, the val MSE at the end below its value after
+     pretraining (a constant predictor's MSE, the train mean label, is
+     printed beside it); after one more `update_embeddings()` on 50 steps'
+     flags, the flags read 0, the visited rows hold the MLP over the full
+     table, some change, and the rows not visited keep their bits; 8
+     requests of 256 users served from `user_vecs` against
+     `serving_tables()` (fp32 D = 20 with a bias) as phase 10 serves,
+     sigmoid of the logits equal to `model.score`, K3's ids those of
+     torch.topk of the logits but for near-ties; 20 steps card against
+     CPU with an update after steps 10 and 20, from the trained weights
+     and moments, with its TF32 control. Prints steps/s, examples/s,
+     device busy ms and launches a step, idle share (one profiled 10-step
+     call), peak memory, the device ms of one update, seconds by part.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
@@ -215,12 +245,14 @@ torch.profiler (device time by kernel, idle share).
 Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
 {"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
-a {"kernels": [...]} line (K1, K2, K3; `launches` from the serving path
-for K1/K2 and the training path for K3, `launches_zoo` from phase 7,
-`launches_legacy` from phase 8, `launches_visual` from phase 9,
-`launches_sequence` from phase 10; each with a `tradesy` entry whose
-`launches` count phase 9's VBPR requests and a `lastfm` entry whose
-`launches` count phase 10's RNNRec requests), and last
+an {"itr": ...} line, a {"kernels": [...]} line (K1, K2, K3; `launches`
+from the serving path for K1/K2 and the training path for K3,
+`launches_zoo` from phase 7, `launches_legacy` from phase 8,
+`launches_visual` from phase 9, `launches_sequence` from phase 10,
+`launches_itr` from phase 11; each with a `tradesy` entry whose
+`launches` count phase 9's VBPR requests, a `lastfm` entry whose
+`launches` count phase 10's RNNRec requests and a `netflix` entry whose
+`launches` count phase 11's ItrMLP requests), and last
 the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}; a phase that did not run prints nothing, and the fields
 it fills stay null. With --out FILE, the full record (every check, latency,
@@ -275,12 +307,17 @@ TRADESY = dict(name="tradesy", dim=100, dtype="bfloat16",
 # weight, no bias
 LASTFM = dict(name="lastfm", dim=32, dtype="float32",
               items=port_catalog("LASTFM").get("total_items"))
+# ItrMLP's serving shape (examples/itr_mlp.py: dim 20, fp32) over the
+# Netflix Prize catalog: 480,189 users x 17,770 movies, the dataset's
+# public counts
+NETFLIX = dict(name="netflix", users=480_189, items=17_770, dim=20,
+               dtype="float32")
 BATCH, K, REQUESTS = 256, 100, 8
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 11)
+PHASES = range(1, 12)
 
 
 def fail(msg):
@@ -430,6 +467,14 @@ K1K2_CASES = [
     ("lastfm no-bias K2 shape", BATCH, LASTFM["items"], 50, "float32", 8,
      "nobias"),
     ("f32 D=32 twin members", 40, 30_000, 32, "float32", 16, "twins"),
+    # ItrMLP's Netflix serving shape (phase 11) at the buckets `pallas` (2)
+    # and `pallas2` (16) pick there: fp32 D = 20, 80-byte rows, with a
+    # bias; twins and rows 4-byte aligned at D = 20
+    ("netflix K1 shape", BATCH, NETFLIX["items"], 20, "float32", 2, ""),
+    ("netflix K2 shape", BATCH, NETFLIX["items"], 20, "float32", 16, ""),
+    ("f32 D=20 twin members", 40, 30_000, 20, "float32", 16, "twins"),
+    ("f32 D=20 view one element in", 20, 5_000, 20, "float32", 4,
+     "element"),
 ]
 
 
@@ -531,6 +576,10 @@ K3_CASES = [
     ("K3 lastfm shape", BATCH, LASTFM["items"], 32, "float32", K, ""),
     ("K3 lastfm no-bias shape", BATCH, LASTFM["items"], 50, "float32", K,
      "nobias"),
+    # phase 11's: fp32 D = 20 (80-byte rows, five 16-byte chunks) with a
+    # bias; and D = 20 with B and I off the kernel's tiling
+    ("K3 netflix shape", BATCH, NETFLIX["items"], 20, "float32", K, ""),
+    ("K3 f32 D=20 k=100", 37, 5_003, 20, "float32", 100, ""),
 ]
 
 
@@ -1695,21 +1744,23 @@ def legacy_model(port, name, U, I, features, dev, gen=None, dropout=True):
 
 
 def param_diff(torch, a, b):
-    """(max |a - b|, {name: entries outside rtol 1e-4, atol 1e-6}) over
-    two {name: tensor} dicts on the CPU, compared in the wider type."""
-    worst, by_param = 0.0, {}
+    """(max |a - b|, {name: entries outside rtol 1e-4, atol 1e-6},
+    {name: max |a - b| of a parameter with entries outside}) over two
+    {name: tensor} dicts on the CPU, compared in the wider type."""
+    worst, by_param, worst_by_param = 0.0, {}, {}
     for key, q in b.items():
         p = a[key].to(torch.promote_types(a[key].dtype, q.dtype))
         q = q.to(p.dtype)
-        worst = max(worst, (p - q).abs().max().item())
+        diff = (p - q).abs().max().item()
+        worst = max(worst, diff)
         n_out = int((~torch.isclose(p, q, rtol=1e-4, atol=1e-6)).sum())
         if n_out:
-            by_param[key] = n_out
-    return worst, by_param
+            by_param[key], worst_by_param[key] = n_out, diff
+    return worst, by_param, worst_by_param
 
 
 def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
-                cpu_params=None):
+                cpu_params=None, update_interval=None):
     """The same steps on the card and on the CPU in `dtype`, from where
     `trainer` stands: its model's weights and its lazy_adam state (count
     and moments), carried into both copies. `make(device)` builds a fresh
@@ -1724,7 +1775,9 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
     largest differences and whether every parameter and loss agrees
     within rtol 1e-4, atol 1e-6, and the entries outside by parameter.
     `cpu_params`, a dict, receives the CPU run's parameters under the
-    dtype's name."""
+    dtype's name. With `update_interval` (ItrMLP) each copy calls its
+    model's `update_embeddings()` after every `update_interval` steps,
+    as `Trainer.train(update_interval=)` does."""
     start = {k: v.detach() for k, v in trainer.model.params().items()}
     state = trainer.opt_state
 
@@ -1736,9 +1789,15 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
             count=state.count.to(d),
             mu={k: v.to(d, dtype, copy=True) for k, v in state.mu.items()},
             nu={k: v.to(d, dtype, copy=True) for k, v in state.nu.items()})
+        k = update_interval or len(batches)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
-            losses = t.train_step_multi(batches).cpu()
+            losses = []
+            for i in range(0, len(batches), k):
+                losses.append(t.train_step_multi(batches[i:i + k]))
+                if update_interval:
+                    m.update_embeddings()
+            losses = torch.cat(losses).cpu()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         return ({k: v.detach().cpu() for k, v in m.params().items()},
@@ -1752,7 +1811,7 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
         card, losses = run(dev, tf32)
         if not torch.isfinite(losses).all():
             fail(f"{what}: non-finite losses on the card")
-        worst, by_param = param_diff(torch, card, cpu)
+        worst, by_param, worst_by_param = param_diff(torch, card, cpu)
         outside = sum(by_param.values())
         loss_ok = torch.allclose(losses, cpu_losses, rtol=1e-4, atol=1e-6)
         runs.append({
@@ -1760,13 +1819,15 @@ def card_vs_cpu(torch, port, what, make, trainer, batches, dev, dtype,
             "dtype": "tf32" if tf32 else str(dtype).split(".")[-1],
             "max_abs_param_diff": worst, "params_outside_tolerance": outside,
             "outside_by_param": by_param,
+            "max_abs_diff_outside_by_param": worst_by_param,
             "max_abs_loss_diff": (losses - cpu_losses).abs().max().item(),
             "losses_within": loss_ok, "within": outside == 0 and loss_ok})
     return runs
 
 
 def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
-                        limit=None, fp64_check=False):
+                        limit=None, fp64_check=False, update_interval=None,
+                        noise_limit=None):
     """`card_vs_cpu` in fp32, the type that trains, which must agree (its
     TF32 control is recorded). An fp32 run outside the tolerance is
     rerun in fp64 before the phase stops, to tell the card's arithmetic
@@ -1782,14 +1843,21 @@ def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
     whose SDAE sums over 1,000 rows and 8,000 words put its fp32 run far
     outside in some runs even from trained moments; the GRU RNNRec of
     phase 10) the fp32 run is recorded and an fp64 run is
-    the check. Returns the runs."""
+    the check. With `noise_limit` = (names, limit) (ItrMLP, whose MLP
+    biases before a batch norm have a true gradient of 0 that Adam steps
+    on rounding noise, each device its own; PERF.md §6) the fp32 run must
+    agree within the tolerance but at the parameters `names`, which need
+    only lie within max |diff| `limit`; its TF32 control must lie outside
+    at some other parameter, and an fp64 run must agree within the
+    tolerance. Returns the runs."""
     cpu = {}
     runs = card_vs_cpu(torch, port, what, make, trainer, batches, dev,
-                       torch.float32, cpu)
+                       torch.float32, cpu, update_interval)
     fp32, control = runs
-    if fp64_check or limit is not None or not fp32["within"]:
+    if fp64_check or limit is not None or noise_limit is not None \
+            or not fp32["within"]:
         runs += card_vs_cpu(torch, port, what, make, trainer, batches, dev,
-                            torch.float64, cpu)
+                            torch.float64, cpu, update_interval)
     ok = runs[-1]["within"] if fp64_check else fp32["within"]
     if limit is not None:
         ok = (fp32["losses_within"] and fp32["max_abs_param_diff"] <= limit
@@ -1797,12 +1865,23 @@ def card_vs_cpu_checked(torch, port, what, make, trainer, batches, dev,
         if not control["max_abs_param_diff"] > limit:
             fail(f"{what}: the TF32 control lies within the fp32 limit "
                  f"{limit}: {runs}")
+    if noise_limit is not None:
+        names, lim = noise_limit
+        ok = (fp32["losses_within"] and runs[-1]["within"]
+              and set(fp32["outside_by_param"]) <= set(names)
+              and all(fp32["max_abs_diff_outside_by_param"][n] <= lim
+                      for n in fp32["outside_by_param"]))
+        if set(control["outside_by_param"]) <= set(names):
+            fail(f"{what}: the TF32 control lies outside only at the "
+                 f"parameters {sorted(names)} its limit covers: {runs}")
     if "float64" in cpu:
-        worst, by_param = param_diff(torch, cpu["float32"], cpu["float64"])
+        worst, by_param, worst_by_param = param_diff(
+            torch, cpu["float32"], cpu["float64"])
         runs.append({"steps": len(batches), "dtype": "cpu float32 vs float64",
                      "max_abs_param_diff": worst,
                      "params_outside_tolerance": sum(by_param.values()),
-                     "outside_by_param": by_param})
+                     "outside_by_param": by_param,
+                     "max_abs_diff_outside_by_param": worst_by_param})
     if not ok:
         fail(f"{what}: card and CPU disagree after {len(batches)} steps: "
              f"{runs}")
@@ -2907,6 +2986,394 @@ def phase_sequence(torch, port, seed, dev, run=SEQUENCE):
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+# ItrMLP at the example's configuration (examples/itr_mlp.py:26-31,
+# 54-57): dim 20, user and item MLPs 30-30-20, batch 256, lazy_adam lr
+# 1e-3, the tables forward-propagated every 200 steps, identity
+# pretraining 2,000 steps of 32 per MLP; at Netflix's width (NETFLIX) on
+# `netflix_data`'s synthetic ratings. Depth, cut to keep the phase near
+# 90 s (PERF.md §4): 1,200 host-fed steps (one chronological epoch of
+# the 1.8 M training records is 7,031) with val eval every 600, and the
+# first 51,200 held-out records evaluated (200 batches).
+# bias_noise_limit: card against CPU, the max |diff| allowed at the MLP
+# biases before a batch norm (their true gradient is 0, and Adam steps
+# them on each device's rounding noise; the batch norm removes them from
+# every output): 6.8x their card-vs-CPU reading on one H100 (2.94e-4
+# in three runs; the CPU's own fp32 against its fp64 run 2.36e-4, and
+# 6.04e-4 in a CPU rehearsal at 20,000 x 2,000), 10x below Adam's bound
+# of steps x lr, while every other parameter stays within rtol 1e-4 /
+# atol 1e-6, where the TF32 control lies outside (PERF.md §6).
+ITR = dict(records=2_000_000, train_share=0.9, eval_records=51_200,
+           rank=8, dim=20, mlp=(30, 30, 20), batch=256, lr=1e-3,
+           update_interval=200, eval_interval=600, steps=1200,
+           pretrain_steps=2000, pretrain_batch=32, profiled_steps=10,
+           card_vs_cpu_steps=20, card_vs_cpu_update=10, update_steps=50,
+           bias_noise_limit=2e-3, users=None, items=None)
+
+
+def netflix_data(seed, run=ITR):
+    """Netflix's width (480,189 users x 17,770 movies unless `run` says
+    otherwise) with `run["records"]` synthetic time-ordered ratings from
+    the seed, by numpy, in the example's law: uniform users and items,
+    label = sigmoid of a rank-8 affinity, computed per record (the
+    example's dense [U, I] affinity would take 34 GB here). The first
+    `train_share` of the records (in time order) train, the rest are
+    held out."""
+    U = run["users"] or NETFLIX["users"]
+    I = run["items"] or NETFLIX["items"]
+    rng = np.random.default_rng(seed + 11)
+    n = run["records"]
+    raw = np.zeros(n, dtype=[("user_id", np.int32), ("item_id", np.int32),
+                             ("label", np.float32)])
+    raw["user_id"] = rng.integers(0, U, n)
+    raw["item_id"] = rng.integers(0, I, n)
+    p = rng.normal(size=(U, run["rank"])).astype(np.float32)
+    q = rng.normal(size=(I, run["rank"])).astype(np.float32)
+    affinity = np.einsum("nr,nr->n", p[raw["user_id"]], q[raw["item_id"]])
+    raw["label"] = 1 / (1 + np.exp(-affinity))
+    split = int(n * run["train_share"])
+    return {"total_users": U, "total_items": I, "train_data": raw[:split],
+            "held_out": raw[split:]}
+
+
+def itr_model(port, U, I, dev, gen=None, run=ITR):
+    return port.ItrMLP(U, I, run["dim"], user_dims=run["mlp"],
+                       item_dims=run["mlp"], device=dev, generator=gen)
+
+
+def explicit_batches(records, start, n, B):
+    """`n` batches of `B` records from `start` on, in order, as
+    `ExplicitSampler(chronological=True)` makes them."""
+    return [{"user_id": records["user_id"][i:i + B].copy(),
+             "item_id": records["item_id"][i:i + B].copy(),
+             "label": records["label"][i:i + B].copy()}
+            for i in range(start, start + n * B, B)]
+
+
+def itr_update_check(torch, model):
+    """One `update_embeddings()` on the card over the flags that steps
+    since the last update set, timed by CUDA events and, from the same
+    state again, under the profiler. The flags must read 0 after it; the
+    visited rows must hold the MLP over the full table as it stood
+    (computed beside it, rtol 1e-6), and some of them change (a row the
+    MLP maps to itself, such as a zero row through relus that stay off,
+    keeps its value: the share that changed is recorded); the rows not
+    visited keep their bits."""
+    out = {}
+    for table, flag, mlp in (("user_embed", "user_flag", model.user_mlp),
+                             ("item_embed", "item_flag", model.item_mlp)):
+        t, f = model.params()[table], model.params()[flag]
+        visited = f.detach() > 0
+        with torch.no_grad():
+            want = mlp(t.detach())
+        out[table] = {"before": t.detach().clone(), "visited": visited,
+                      "want": want}
+    saved = {k: v.detach().clone() for k, v in model.params().items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    model.update_embeddings()
+    end.record()
+    end.synchronize()
+    rec = {"events_ms": start.elapsed_time(end)}
+    after = {k: v.detach().clone() for k, v in model.params().items()}
+    for table, flag in (("user_embed", "user_flag"),
+                        ("item_embed", "item_flag")):
+        o = out[table]
+        now, vis = after[table], o["visited"]
+        changed = (now != o["before"]).any(dim=1)
+        r = {"rows": int(now.shape[0]), "visited": int(vis.sum()),
+             "visited_changed": int((changed & vis).sum()),
+             "flags_after": int((after[flag] != 0).sum()),
+             "unvisited_bit_identical": bool(torch.equal(
+                 now[~vis], o["before"][~vis])),
+             "visited_max_abs_diff_vs_mlp": (
+                 now[vis] - o["want"][vis]).abs().max().item()
+             if vis.any() else 0.0}
+        rec[table] = r
+        if r["flags_after"] or not r["unvisited_bit_identical"] \
+                or not r["visited"] \
+                or not torch.allclose(now[vis], o["want"][vis], rtol=1e-6,
+                                      atol=1e-6) \
+                or not r["visited_changed"]:
+            fail(f"itr ItrMLP: the update's checks failed {rec}")
+    # device time of one update by the profiler, from the same state
+    model.load_params(saved)
+    prof = profile_device(torch, model.update_embeddings, 1,
+                          rec["events_ms"])
+    rec["device_ms"] = prof["device_busy_ms_per_call"]
+    rec["launches"] = prof["device_ops_per_call"]
+    rec["top_device_ms"] = prof["top_device_ms_per_call"]
+    for table in ("user_embed", "item_embed"):
+        if not torch.allclose(model.params()[table], after[table],
+                              rtol=1e-6, atol=1e-6):
+            fail("itr ItrMLP: a second update from the same state gave "
+                 "other rows")
+    return rec
+
+
+def itr_serving(torch, model, dev, rng):
+    """8 requests of 256 users, each request's user vectors from
+    `model.user_vecs` (batch norm over the request) against
+    `serving_tables()` in fp32: `pallas` and `pallas2` through
+    `bucket_score_topk` and K3 (`fused_score_topk`). Every returned score
+    must be the fp32 logit at its id, recall against the exact top-100 at
+    least the target less 0.01, K3's ids those of torch.topk of the
+    logits but for picks scoring within 1e-5 (sigmoid ties large logits
+    in fp32, so ids are compared on the logits), sigmoid(logits) near
+    `model.score`, and K1 and K2 equal to their plain version at their
+    buckets (those launches are given back to the counters)."""
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    table, bias = model.serving_tables()
+    I = table.shape[0]
+    hits = {"pallas": 0, "pallas2": 0}
+    out = {"requests": 0, "score_max_abs_err": 0.0,
+           "sigmoid_vs_score_max_abs_diff": 0.0,
+           "ms": {"pallas": [], "pallas2": [], "k3": []}}
+    k3_checks, plain = [], {"K1": [], "K2": []}
+    for _ in range(REQUESTS):
+        users = torch.as_tensor(rng.integers(0, model.total_users, BATCH),
+                                device=dev)
+        with torch.no_grad():
+            u = model.user_vecs({"user_id": users}).contiguous()
+            ms = model.score({"user_id": users})
+        full = tk.dot_scores(u, table, bias)
+        sig = torch.sigmoid(full)
+        out["sigmoid_vs_score_max_abs_diff"] = max(
+            out["sigmoid_vs_score_max_abs_diff"],
+            (sig - ms).abs().max().item())
+        if not near(sig, ms).all():
+            fail("itr ItrMLP: sigmoid(user_vecs . table + bias) is not the "
+                 "model's score")
+        ex_v, ex_i = torch.topk(full, K, dim=1)
+        ex_sorted = torch.sort(ex_i, dim=1).values
+        for m, per in (("pallas", 1), ("pallas2", 2)):
+            t = time.perf_counter()
+            vals, ids = bt.bucket_score_topk(u, table, bias, K,
+                                             recall_target=TARGETS[m],
+                                             per_bucket=per)
+            torch.cuda.synchronize()
+            out["ms"][m].append((time.perf_counter() - t) * 1e3)
+            ref = full.gather(1, ids.long())
+            out["score_max_abs_err"] = max(out["score_max_abs_err"],
+                                           (vals - ref).abs().max().item())
+            if not near(vals, ref).all():
+                fail(f"itr ItrMLP {m}: a returned score is not the fp32 "
+                     "logit at its id")
+            found = torch.searchsorted(ex_sorted, ids.to(ex_sorted.dtype))
+            hits[m] += int((ex_sorted.gather(1, found.clamp(max=K - 1))
+                            == ids).sum())
+        t = time.perf_counter()
+        vals, ids = tk.fused_score_topk(u, table, bias, K)
+        torch.cuda.synchronize()
+        out["ms"]["k3"].append((time.perf_counter() - t) * 1e3)
+        k3_checks.append(check_topk(torch, vals, ids, ex_v, ex_i, full,
+                                    "itr ItrMLP K3"))
+        counted = (bt.bucket_max_scores.launches,
+                   bt.bucket_max2_scores.launches)
+        for kname, m, top2 in (("K1", "pallas", False),
+                               ("K2", "pallas2", True)):
+            bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
+                                      per_bucket=2 if top2 else 1)
+            plain[kname].append((bucket,) + compare_kernel(
+                torch, bt, u, table, bias, bucket, top2))
+        bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = \
+            counted
+        out["requests"] += 1
+    n = out["requests"] * BATCH * K
+    out["recall_vs_exact"] = {m: h / n for m, h in hits.items()}
+    for m, r in out["recall_vs_exact"].items():
+        if r < TARGETS[m] - 0.01:
+            fail(f"itr ItrMLP {m}: recall {r} below its floor "
+                 f"{TARGETS[m] - 0.01}")
+    out["k1k2_vs_plain"] = {
+        kname: {"bucket": c[0][0], "max_abs_err": max(x[1] for x in c),
+                "id_mismatch_not_tie": sum(x[2] for x in c),
+                "id_mismatch_tie": sum(x[3] for x in c)}
+        for kname, c in plain.items()}
+    for kname, c in out["k1k2_vs_plain"].items():
+        if c["id_mismatch_not_tie"]:
+            fail(f"itr ItrMLP {kname}: id mismatches against its plain "
+                 f"version that are not near-ties {c}")
+    out["k3"] = {"max_abs_err": max(c[0] for c in k3_checks),
+                 "id_mismatch_not_tie": sum(c[1] for c in k3_checks),
+                 "id_mismatch_tie": sum(c[2] for c in k3_checks)}
+    if out["k3"]["id_mismatch_not_tie"]:
+        fail(f"itr ItrMLP K3: id mismatches that are not near-ties "
+             f"{out['k3']}")
+    out["calls"] = {m: out["requests"] for m in ("pallas", "pallas2", "k3")}
+    out["table"] = {"shape": list(table.shape), "bias": True,
+                    "dtype": str(table.dtype).split(".")[-1],
+                    "contiguous": table.is_contiguous()}
+    out["p50_ms"] = {m: float(np.median(v)) for m, v in out["ms"].items()}
+    return out
+
+
+def phase_itr(torch, port, seed, dev, run=ITR):
+    """Phase 11: ItrMLP at Netflix width on `netflix_data`: identity
+    pretraining, host-fed chronological training through Trainer.train
+    with the table update every `update_interval` steps and the
+    per-record MSE eval, the update's checks, the profiled call, serving
+    through K1/K2/K3, and card against CPU across a full-table update.
+    The kernels' counters are set to 0 here and read at the end."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        return itr_run(torch, port, seed, dev, Path(log_dir), run)
+
+
+def itr_run(torch, port, seed, dev, log_dir, run):
+    from openrec_tpu_torch.data import Dataset
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    from openrec_tpu_torch.ops import topk as tk
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
+                "K3": tk.fused_score_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    seconds, t = {}, time.perf_counter()
+    data = netflix_data(seed, run)
+    U, I, B = data["total_users"], data["total_items"], run["batch"]
+    train = data["train_data"]
+    train_ds = Dataset(train, U, I, seed=seed)
+    val_ds = Dataset(data["held_out"][:run["eval_records"]], U, I,
+                     seed=seed)
+    val = val_ds.regression_evaluation(B)
+    const_mse = float(np.mean((val_ds.store.raw_data["label"]
+                               - train["label"].mean()) ** 2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = itr_model(port, U, I, dev, gen, run)
+    torch.cuda.reset_peak_memory_stats(dev)
+    log_file = log_dir / "ItrMLP.jsonl"
+    trainer = port.Trainer(model, lr=run["lr"], seed=seed, device=dev,
+                           log_file=str(log_file))
+    out = {"data": {"users": U, "items": I, "records": run["records"],
+                    "train_records": len(train),
+                    "eval_records": len(val_ds.store.raw_data),
+                    "rank": run["rank"]},
+           "config": {"dim": run["dim"], "mlp": list(run["mlp"]),
+                      "batch": B, "lr": run["lr"], "optimizer": "lazy_adam",
+                      "update_interval": run["update_interval"],
+                      "pretrain": [run["pretrain_steps"],
+                                   run["pretrain_batch"]]},
+           "val_step0": float(trainer.evaluate(val)["MSE"]),
+           "constant_predictor_mse": const_mse}
+    seconds["setup"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    model.pretrain_identity(gen, steps=run["pretrain_steps"],
+                            batch=run["pretrain_batch"])
+    torch.cuda.synchronize()
+    seconds["pretrain"] = time.perf_counter() - t
+    out["val_pretrained"] = float(trainer.evaluate(val)["MSE"])
+
+    t = time.perf_counter()
+    feed = train_ds.explicit(B, chronological=True)
+    res = trainer.train(run["steps"], feed, eval_samplers={"val": val},
+                        eval_interval=run["eval_interval"],
+                        update_interval=run["update_interval"],
+                        verbose=False)
+    seconds["train"] = time.perf_counter() - t
+    recs = [json.loads(x) for x in log_file.read_text().splitlines()]
+    losses = [r_["loss"] for r_ in recs]
+    its = [r_["iters_per_s"] for r_ in recs]
+    steps_per_s = float(np.median(its))
+    r = {"steps": trainer.global_step, "steps_per_s_by_call": its,
+         "steps_per_s": steps_per_s, "examples_per_s": steps_per_s * B,
+         "mean_loss_by_call": losses,
+         "val_mse_by_call": [r_["eval"]["val"]["MSE"] for r_ in recs],
+         "val": float(res["val"]["MSE"])}
+    out["host_fed"] = r
+    if trainer.global_step != run["steps"] \
+            or len(recs) != run["steps"] // run["eval_interval"] \
+            or not np.all(np.isfinite(losses)):
+        fail(f"itr ItrMLP: steps {trainer.global_step}, losses {losses}")
+    if not r["val"] < out["val_pretrained"]:
+        fail(f"itr ItrMLP: val MSE did not fall below its value after "
+             f"pretraining: {out['val_pretrained']} -> {r['val']}")
+    if model.user_flag.any() or model.item_flag.any():
+        fail("itr ItrMLP: flags set after the last scheduled update")
+
+    t = time.perf_counter()
+    n = run["profiled_steps"]
+    batches = explicit_batches(train, run["steps"] * B,
+                               max(n, run["card_vs_cpu_steps"],
+                                   run["update_steps"]), B)
+    profile_steps(torch, r, lambda: trainer.train_step_multi(
+        batches[:n]).cpu(), n)
+    seconds["profile"] = time.perf_counter() - t
+    t = time.perf_counter()
+    trainer.train_step_multi(batches[n:run["update_steps"]])
+    out["update"] = itr_update_check(torch, model)
+    seconds["update_check"] = time.perf_counter() - t
+    out["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    up = out["update"]
+    print(f"itr ItrMLP host-fed (explicit, chronological): {r['steps']} "
+          f"steps, {r['steps_per_s']:.1f} steps/s, "
+          f"{r['examples_per_s']:.0f} examples/s, device busy "
+          f"{r['device_busy_ms_per_step']:.4f} ms a step "
+          f"({r['device_ops_per_step']:.0f} launches; one {n}-step call), "
+          f"idle {r['idle_share']:.3f}; mean loss by call "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; val MSE {out['val_step0']:.5f} (init) -> "
+          f"{out['val_pretrained']:.5f} (pretrained) -> {r['val']:.5f} "
+          f"(constant predictor {const_mse:.5f}); update_embeddings "
+          f"{up['device_ms']:.4f} ms device ({up['launches']:.0f} "
+          f"launches), {up['events_ms']:.4f} ms by events, visited "
+          f"users {up['user_embed']['visited']} / items "
+          f"{up['item_embed']['visited']}; peak "
+          f"{out['max_memory_allocated_gb']:.3f} GB; seconds "
+          + json.dumps({k_: round(v, 2) for k_, v in seconds.items()}),
+          flush=True)
+
+    t = time.perf_counter()
+    out["serving"] = sv = itr_serving(torch, model, dev,
+                                      np.random.default_rng(seed + 12))
+    seconds["serving"] = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"K1": sv["calls"]["pallas"], "K2": sv["calls"]["pallas2"],
+            "K3": sv["calls"]["k3"]}
+    out["launches"] = launches
+    if launches != want:
+        fail(f"itr: kernel launches {launches}, the path made {want}")
+    print(f"itr ItrMLP serving (fp32 D = {run['dim']}, {BATCH} x {I:,}): "
+          "recall "
+          + json.dumps(sv["recall_vs_exact"])
+          + f", scores max |err| {sv['score_max_abs_err']:.3g}, "
+          f"sigmoid vs score {sv['sigmoid_vs_score_max_abs_diff']:.3g}, "
+          "K1/K2 vs plain " + json.dumps(sv["k1k2_vs_plain"]) + ", K3 "
+          + json.dumps(sv["k3"]) + ", p50 ms " + json.dumps(sv["p50_ms"])
+          + f"; launches {json.dumps(launches)}", flush=True)
+
+    t = time.perf_counter()
+    pre_bn_biases = [n for n in model.params()
+                     if "_mlp/" in n and n.endswith("/b")]
+    out["card_vs_cpu"] = card_vs_cpu_checked(
+        torch, port, "itr ItrMLP", lambda d: itr_model(port, U, I, d,
+                                                       run=run),
+        trainer, batches[:run["card_vs_cpu_steps"]], dev,
+        update_interval=run["card_vs_cpu_update"],
+        noise_limit=(pre_bn_biases, run["bias_noise_limit"]))
+    seconds["card_vs_cpu"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    print(f"itr ItrMLP: card-vs-cpu {run['card_vs_cpu_steps']} steps "
+          f"(update every {run['card_vs_cpu_update']}), "
+          + ", ".join(f"{c['dtype']} params max |diff| "
+                      f"{c['max_abs_param_diff']:.3g} ("
+                      f"{c['params_outside_tolerance']} outside, max |diff| "
+                      "by param " + json.dumps(
+                          {n: float(f"{v:.3g}") for n, v in
+                           c["max_abs_diff_outside_by_param"].items()})
+                      + ")" for c in out["card_vs_cpu"])
+          + f"; the MLP biases before a batch norm within "
+          f"{run['bias_noise_limit']:g}, the rest within rtol 1e-4 / atol "
+          "1e-6; seconds " + json.dumps({k_: round(v, 2)
+                                         for k_, v in seconds.items()}),
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def nvidia_smi(query):
@@ -2972,9 +3439,10 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     """K1's and K2's entries of the kernels line: their numbers at the
     Amazon serving shape (bf16, the tensor-core route), with the
     CiteULike shape (fp32, the CUDA-core route), VBPR's Tradesy shape
-    (bf16, D = 100) and RNNRec's LastFM shape (fp32, D = 32) beside them,
-    each at the bucket `bucket_score_topk` picks there for its method's
-    target. The CiteULike, Tradesy and LastFM entries' `max_abs_err` is
+    (bf16, D = 100), RNNRec's LastFM shape (fp32, D = 32) and ItrMLP's
+    Netflix shape (fp32, D = 20) beside them, each at the bucket
+    `bucket_score_topk` picks there for its method's target. The
+    CiteULike, Tradesy, LastFM and Netflix entries' `max_abs_err` is
     phase 2's at that shape and bucket."""
     def inputs(I, D, dtype):
         u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
@@ -2986,6 +3454,7 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     citeulike = inputs(CITEULIKE["items"], CITEULIKE["dim"], torch.float32)
     tradesy = inputs(TRADESY["items"], TRADESY["dim"], torch.bfloat16)
     lastfm = inputs(LASTFM["items"], LASTFM["dim"], torch.float32)
+    netflix = inputs(NETFLIX["items"], NETFLIX["dim"], torch.float32)
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
@@ -3018,7 +3487,7 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
             None)
         entry["citeulike"]["launches"] = entry["launches_zoo"] = \
             entry["launches_legacy"] = entry["launches_visual"] = \
-            entry["launches_sequence"] = None
+            entry["launches_sequence"] = entry["launches_itr"] = None
         entry["tradesy"] = time_bucket_kernel(torch, bt, *tradesy, top2,
                                               bucket_at(TRADESY))
         entry["tradesy"]["variant"] = "mma-bf16"
@@ -3035,10 +3504,19 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              if c["kernel"] == kname and c["case"].startswith("lastfm K")
              and c["bucket"] == entry["lastfm"]["shape"]["bucket"]), None)
         entry["lastfm"]["launches"] = None
+        entry["netflix"] = time_bucket_kernel(torch, bt, *netflix, top2,
+                                              bucket_at(NETFLIX))
+        entry["netflix"]["variant"] = F32_VARIANT
+        entry["netflix"]["max_abs_err"] = next(
+            (c["max_abs_err"] for c in compare_report
+             if c["kernel"] == kname and c["case"].startswith("netflix K")
+             and c["bucket"] == entry["netflix"]["shape"]["bucket"]), None)
+        entry["netflix"]["launches"] = None
         entries.append(entry)
         for name, t in (("amazon", entry), ("citeulike", entry["citeulike"]),
                         ("tradesy", entry["tradesy"]),
-                        ("lastfm", entry["lastfm"])):
+                        ("lastfm", entry["lastfm"]),
+                        ("netflix", entry["netflix"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
@@ -3110,10 +3588,11 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
                   compare_report):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
-    shape (bf16), VBPR's Tradesy shape (bf16, D = 100) and RNNRec's
-    LastFM shape (fp32, D = 32) beside them. `launches` is filled in by
-    phase 5, the Tradesy entry's by phase 9, the LastFM entry's by phase
-    10; `amazon_launches` is K3's count over phase 3's Amazon
+    shape (bf16), VBPR's Tradesy shape (bf16, D = 100), RNNRec's LastFM
+    shape (fp32, D = 32) and ItrMLP's Netflix shape (fp32, D = 20)
+    beside them. `launches` is filled in by phase 5, the Tradesy entry's
+    by phase 9, the LastFM entry's by phase 10, the Netflix entry's by
+    phase 11; `amazon_launches` is K3's count over phase 3's Amazon
     requests."""
     entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
              "route": "cuda",
@@ -3122,7 +3601,8 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
              "replaces_function": "_fused_topk_kernel",
              "launches": None, "launches_zoo": None,
              "launches_legacy": None, "launches_visual": None,
-             "launches_sequence": None, "max_abs_err": err}
+             "launches_sequence": None, "launches_itr": None,
+             "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
@@ -3140,9 +3620,16 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
     entry["lastfm"]["max_abs_err"] = next(
         (c["max_abs_err"] for c in compare_report
          if c["case"] == "K3 lastfm shape"), None)
+    entry["netflix"] = time_k3(torch, tk, gen, dev, BATCH, NETFLIX["items"],
+                               NETFLIX["dim"], "float32")
+    entry["netflix"]["launches"] = None
+    entry["netflix"]["max_abs_err"] = next(
+        (c["max_abs_err"] for c in compare_report
+         if c["case"] == "K3 netflix shape"), None)
     for name, t in (("citeulike", entry), ("amazon", entry["amazon"]),
                     ("tradesy", entry["tradesy"]),
-                    ("lastfm", entry["lastfm"])):
+                    ("lastfm", entry["lastfm"]),
+                    ("netflix", entry["netflix"])):
         print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
               f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
               "stages " + json.dumps(t["stages_ms"]), flush=True)
@@ -3208,7 +3695,7 @@ def main(argv=None):
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
     serve, kernels = {}, []
-    train = dlrm = zoo = legacy = visual = sequence = None
+    train = dlrm = zoo = legacy = visual = sequence = itr = None
 
     # phase 2
     if 2 in phases:
@@ -3289,6 +3776,17 @@ def main(argv=None):
                 sequence["launches"][entry["name"][:2]]
             entry["lastfm"]["launches"] = \
                 sequence["launches_lastfm_d32"][entry["name"][:2]]
+        torch.cuda.empty_cache()
+
+    # phase 11
+    if 11 in phases:
+        t11 = time.perf_counter()
+        itr = phase_itr(torch, port, args.seed, dev)
+        itr["phase_s"] = time.perf_counter() - t11
+        for entry in kernels:
+            # every phase-11 launch is at the Netflix shape
+            entry["launches_itr"] = entry["netflix"]["launches"] = \
+                itr["launches"][entry["name"][:2]]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
@@ -3297,6 +3795,7 @@ def main(argv=None):
              else "")
           + (f"phase 10 (sequence): {sequence['phase_s']:.1f} s; "
              if sequence else "")
+          + (f"phase 11 (itr): {itr['phase_s']:.1f} s; " if itr else "")
           + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
@@ -3306,7 +3805,7 @@ def main(argv=None):
              "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
              "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual,
-             "sequence": sequence},
+             "sequence": sequence, "itr": itr},
             indent=1))
     if serve:
         print(json.dumps({"requests": {name: {
@@ -3431,6 +3930,25 @@ def main(argv=None):
                 "k3", "calls", "p50_ms")}}
                if "serving" in sequence[name] else {})
             for name in SEQUENCE_MODELS}}))
+    if itr:
+        print(json.dumps({"itr": {
+            m: itr[m] for m in ("launches", "data", "config", "val_step0",
+                                "val_pretrained", "constant_predictor_mse",
+                                "max_memory_allocated_gb", "seconds",
+                                "phase_s")}
+            | {"host_fed": {m: itr["host_fed"][m] for m in (
+                "steps_per_s", "examples_per_s", "device_busy_ms_per_step",
+                "device_ops_per_step", "idle_share", "mean_loss_by_call",
+                "val_mse_by_call", "val")},
+               "update": {m: itr["update"][m] for m in (
+                   "events_ms", "device_ms", "launches", "user_embed",
+                   "item_embed")},
+               "card_vs_cpu": {c["dtype"]: c["max_abs_param_diff"]
+                               for c in itr["card_vs_cpu"]},
+               "serving": {m: itr["serving"][m] for m in (
+                   "recall_vs_exact", "score_max_abs_err",
+                   "sigmoid_vs_score_max_abs_diff", "k1k2_vs_plain", "k3",
+                   "calls", "p50_ms")}}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

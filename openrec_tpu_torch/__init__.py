@@ -54,6 +54,12 @@ sampled softmax), VanillaYouTubeRec and YouTubeRec, with
 `TemporalEvaluationSampler`, `Dataset.temporal` /
 `temporal_evaluation`, the on-device `DeviceTemporalSampler`,
 `Trainer.evaluate_temporal` and the LastFM loader.
+
+And ItrMLP with its explicit-rating path: frozen tables that
+`update_embeddings` rewrites on a schedule (`Trainer.train(
+update_interval=)`), `ExplicitSampler` (`Dataset.explicit`),
+`RegressionEvalSampler` (`Dataset.regression_evaluation`) and the
+per-record MSE eval.
 """
 
 __version__ = "0.1.0"
@@ -64,14 +70,14 @@ from openrec_tpu_torch.convert import (
     sparse_opt_state_from_jax, sparse_opt_state_to_numpy)
 from openrec_tpu_torch.models import (
     BPR, CDL, CML, DLRM, GMF, NBPR, PMF, UCML, VBPR, WCML, WRMF,
-    ConcatVisualBPR, FactorRecommender, MLPRec, NeuMF, Recommender, RNNRec,
-    UserPMF, UserVisualPMF, VanillaYouTubeRec, VisualBPR, VisualCML,
+    ConcatVisualBPR, FactorRecommender, ItrMLP, MLPRec, NeuMF, Recommender,
+    RNNRec, UserPMF, UserVisualPMF, VanillaYouTubeRec, VisualBPR, VisualCML,
     VisualGMF, VisualPMF, YouTubeRec, criteo_dlrm)
 from openrec_tpu_torch.ops import (
     bucket_max2_scores, bucket_max_scores, bucket_score_topk,
     fused_score_topk, topk_approx, topk_xla)
 from openrec_tpu_torch.metrics import (
-    AUC, NDCG, DeviceDictMean, DeviceMean, DictMean, EvalManager, Mean,
+    AUC, MSE, NDCG, DeviceDictMean, DeviceMean, DictMean, EvalManager, Mean,
     Precision, Recall, chunked_dot_eval_metrics, metrics_from_counts,
     numpy_eval)
 from openrec_tpu_torch.serving import CachedDotProductScorer
@@ -81,9 +87,10 @@ from openrec_tpu_torch.modules import (
     masked_mean_pool, second_order_interaction)
 from openrec_tpu_torch.data import (
     Dataset, DevicePairwiseSampler, DevicePointwiseSampler,
-    DeviceTemporalSampler, EvaluationSampler, FeatureJoinedSampler,
-    InteractionStore, NPairwiseSampler, PairwiseSampler,
-    PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
+    DeviceTemporalSampler, EvaluationSampler, ExplicitSampler,
+    FeatureJoinedSampler, InteractionStore, NPairwiseSampler,
+    PairwiseSampler, PerPosStratifiedPointwiseSampler,
+    RandomPointwiseSampler, RegressionEvalSampler,
     StratifiedPointwiseSampler, TemporalEvaluationSampler, TemporalSampler)
 from openrec_tpu_torch.training import (Trainer, adam, keras_adam,
                                         lazy_adagrad, lazy_adam)

@@ -5,8 +5,9 @@ from openrec_tpu_torch.data.pipeline import (
 from openrec_tpu_torch.data.device_sampler import (
     DevicePairwiseSampler, DevicePointwiseSampler, DeviceTemporalSampler)
 from openrec_tpu_torch.data.samplers import (
-    BatchSampler, EndOfData, EvaluationSampler, FeatureJoinedSampler,
-    NPairwiseSampler, PairwiseSampler, PerPosStratifiedPointwiseSampler,
-    RandomPointwiseSampler, StratifiedPointwiseSampler,
+    BatchSampler, EndOfData, EvaluationSampler, ExplicitSampler,
+    FeatureJoinedSampler, NPairwiseSampler, PairwiseSampler,
+    PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
+    RegressionEvalSampler, StratifiedPointwiseSampler,
     TemporalEvaluationSampler, TemporalSampler)
 from openrec_tpu_torch.data import loaders

@@ -10,17 +10,20 @@ folds its id into it; `pairwise(joins=...)` wraps its sampler in a
 (the sequence models; a store built with `sortby`, e.g. "ts"), and
 `evaluation` an `EvaluationSampler`, `temporal_evaluation` a
 `TemporalEvaluationSampler`; both temporal methods take `joins=` (the
-user features of YouTubeRec). The explicit strategy of the JAX package
-comes with the model that uses it.
+user features of YouTubeRec). `explicit` streams records with their
+ratings (ItrMLP; chronological=True forces one worker) and
+`regression_evaluation` gives a `RegressionEvalSampler` (the per-record
+MSE eval).
 """
 
 from __future__ import annotations
 
 from openrec_tpu_torch.data.pipeline import Prefetcher
 from openrec_tpu_torch.data.samplers import (
-    EvaluationSampler, FeatureJoinedSampler, NPairwiseSampler,
-    PairwiseSampler,
+    EvaluationSampler, ExplicitSampler, FeatureJoinedSampler,
+    NPairwiseSampler, PairwiseSampler,
     PerPosStratifiedPointwiseSampler, RandomPointwiseSampler,
+    RegressionEvalSampler,
     StratifiedPointwiseSampler, TemporalEvaluationSampler, TemporalSampler)
 from openrec_tpu_torch.data.store import InteractionStore
 
@@ -81,6 +84,17 @@ class Dataset:
         s = RandomPointwiseSampler(self.store, batch_size, seed=self._seed)
         return Prefetcher(s, num_workers=num_parallel_calls, take=take)
 
+    def explicit(self, batch_size, label_field="label",
+                 num_parallel_calls=1, take=None, chronological=False):
+        """(user, item, float32 label) batches; chronological=True: one
+        unshuffled sequential epoch in raw-data order (finite; forces 1
+        worker)."""
+        s = ExplicitSampler(self.store, batch_size, label_field,
+                            seed=self._seed, chronological=chronological)
+        if chronological:
+            num_parallel_calls = 1
+        return Prefetcher(s, num_workers=num_parallel_calls, take=take)
+
     def temporal(self, batch_size, max_seq_len, num_parallel_calls=1,
                  take=None, joins=()):
         """Infinite (window, seq_len, next-item label, user) batches;
@@ -96,6 +110,11 @@ class Dataset:
             self.store, batch_size,
             excl_stores=[d.store for d in excl_datasets],
             device_masks=device_masks)
+
+    def regression_evaluation(self, batch_size, label_field="label"):
+        """Every record once, as (user, item, label) batches with a
+        `valid` mask: the per-record regression (MSE) eval."""
+        return RegressionEvalSampler(self.store, batch_size, label_field)
 
     def temporal_evaluation(self, batch_size, max_seq_len, joins=()):
         """A `TemporalEvaluationSampler`; with joins its `epoch()` adds

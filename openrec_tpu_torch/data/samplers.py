@@ -18,7 +18,11 @@ held out, one epoch). The same seed gives bit-identical batches to the
 JAX package on every path, the numpy paths (`use_native=False`) and the
 C++ feeder (`openrec_tpu_torch/native/`, the default of `PairwiseSampler`
 and `StratifiedPointwiseSampler` whenever it builds, as in the JAX
-package). The explicit sampler comes with the model that uses it.
+package). `ExplicitSampler` (`:344-360`) streams records with their
+float32 ratings, shuffled by epoch or, chronologically, one unshuffled
+epoch in raw-data order (ItrMLP's protocol); `RegressionEvalSampler`
+(`:592-625`) batches every record once, in data order, zero-padded to the
+batch size with a `valid` mask (the per-record MSE eval).
 
 Batches are dicts of fixed-shape numpy arrays; `pipeline.to_device` moves
 them onto the card.
@@ -331,6 +335,24 @@ class RandomPointwiseSampler(BatchSampler):
                 "item_id": items.astype(np.int32), "label": labels}
 
 
+class ExplicitSampler(BatchSampler):
+    """Records with their explicit labels (ratings), read from
+    `label_field` as float32. chronological=True streams one unshuffled
+    sequential epoch and drops the last partial batch."""
+
+    def __init__(self, store, batch_size, label_field="label", seed=0,
+                 chronological=False):
+        super().__init__(store, batch_size, seed,
+                         chronological=chronological)
+        self.label_field = label_field
+
+    def sample(self):
+        rec = self._next_records(self.batch_size)
+        return {"user_id": np.asarray(rec["user_id"], dtype=np.int32),
+                "item_id": np.asarray(rec["item_id"], dtype=np.int32),
+                "label": np.asarray(rec[self.label_field], dtype=np.float32)}
+
+
 class TemporalSampler(BatchSampler):
     """Time-sorted history window -> next-item label, zero-padded to
     max_seq_len (reference tf1 temporal_sampler.py:5-29). Needs a store
@@ -559,3 +581,37 @@ class EvaluationSampler:
                 valid = np.pad(valid, (0, pad))
             yield {"user_id": users.astype(np.int32), "pos_mask": pos,
                    "excl_mask": excl, "valid": valid}
+
+
+class RegressionEvalSampler:
+    """One pass over every record, in data order, for the per-record
+    regression eval (MSE): batches of (user_id, item_id, label) zero-padded
+    to `batch_size`, with a `valid` mask. `len()` is the number of
+    batches."""
+
+    def __init__(self, store: InteractionStore, batch_size: int,
+                 label_field: str = "label"):
+        self.store = store
+        self.batch_size = int(batch_size)
+        self.label_field = label_field
+
+    def __len__(self):
+        return -(-self.store.total_records() // self.batch_size)
+
+    def __iter__(self):
+        data = self.store.raw_data
+        bs = self.batch_size
+        for i in range(0, len(data), bs):
+            rec = data[i:i + bs]
+            pad = bs - len(rec)
+            users = np.asarray(rec["user_id"], dtype=np.int32)
+            items = np.asarray(rec["item_id"], dtype=np.int32)
+            labels = np.asarray(rec[self.label_field], dtype=np.float32)
+            valid = np.ones(len(rec), dtype=bool)
+            if pad:
+                users = np.pad(users, (0, pad))
+                items = np.pad(items, (0, pad))
+                labels = np.pad(labels, (0, pad))
+                valid = np.pad(valid, (0, pad))
+            yield {"user_id": users, "item_id": items, "label": labels,
+                   "valid": valid}

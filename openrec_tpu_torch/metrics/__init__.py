@@ -1,5 +1,5 @@
 from openrec_tpu_torch.metrics.ranking import (
-    AUC, NDCG, Precision, Recall, ids_to_masks, metrics_from_counts,
+    AUC, MSE, NDCG, Precision, Recall, ids_to_masks, metrics_from_counts,
     ranking_metrics)
 from openrec_tpu_torch.metrics.chunked import chunked_dot_eval_metrics
 from openrec_tpu_torch.metrics.mean import (DeviceDictMean, DeviceMean,

@@ -12,6 +12,9 @@ Counterpart of `openrec_tpu/metrics/ranking.py`, with its tie conventions
          (unnormalized DCG)
          Precision@k = |{p : rank_above(p) < k}| / k
 
+and `MSE`, the per-record squared error of the regression eval
+(`:136-138`).
+
 Users are a batch dimension: one sort + one batched searchsorted per call.
 """
 
@@ -134,3 +137,8 @@ def ids_to_masks(pos_ids, excl_ids, total_items):
         return mask[:, :total_items]
 
     return scatter(pos_ids), scatter(excl_ids)
+
+
+def MSE(pred, labels):
+    """Per-example squared error (tf1 evaluators/mse.py:10-12)."""
+    return (pred - labels) ** 2

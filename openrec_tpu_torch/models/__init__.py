@@ -14,3 +14,4 @@ from openrec_tpu_torch.models.visual import (VBPR, ConcatVisualBPR,
 from openrec_tpu_torch.models.user_feature import UserPMF, UserVisualPMF
 from openrec_tpu_torch.models.sequence import (RNNRec, VanillaYouTubeRec,
                                                YouTubeRec)
+from openrec_tpu_torch.models.itr_mlp import ItrMLP

@@ -39,19 +39,13 @@ from torch import nn
 
 from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.models.base import Recommender
-from openrec_tpu_torch.modules.embedding import embedding_lookup
+from openrec_tpu_torch.modules.embedding import (embedding_lookup,
+                                                 normal_embed)
 from openrec_tpu_torch.modules.interactions import masked_sum
 from openrec_tpu_torch.modules.losses import (sampled_softmax_loss,
                                               softmax_ce_loss)
 from openrec_tpu_torch.modules.mlp import MLP, glorot_uniform
 from openrec_tpu_torch.modules.rnn import GRU, LSTM
-
-
-def normal_embed(num: int, dim: int, generator=None, device=None):
-    """0.01 * truncated_normal(-2, 2) [num, dim] (tf1 LatentFactor's
-    'normal' init)."""
-    table = torch.empty((num, dim), device=resolve_device(device))
-    return 0.01 * nn.init.trunc_normal_(table, generator=generator)
 
 
 class RNNRec(Recommender):

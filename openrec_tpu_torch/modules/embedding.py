@@ -1,9 +1,9 @@
 """Embedding tables as plain tensors + functions.
 
 Counterpart of `openrec_tpu/modules/embedding.py`: uniform(-0.05, 0.05)
-init, look-up, and norm censoring (also in place, for a model's
-`post_step`). A table is a [num, dim] tensor (an
-`nn.Parameter` inside a model).
+init (and tf1's 'normal' init, 0.01 times a truncated normal), look-up,
+and norm censoring (also in place, for a model's `post_step`). A table
+is a [num, dim] tensor (an `nn.Parameter` inside a model).
 """
 
 from __future__ import annotations
@@ -24,6 +24,13 @@ def embedding_init(num: int, dim: int, zero_init: bool = False,
     if not zero_init:
         table.uniform_(-scale, scale, generator=generator)
     return table
+
+
+def normal_embed(num: int, dim: int, generator=None, device=None):
+    """0.01 * truncated_normal(-2, 2) [num, dim] (tf1 LatentFactor's
+    'normal' init; the sequence models' and ItrMLP's tables)."""
+    table = torch.empty((num, dim), device=resolve_device(device))
+    return 0.01 * torch.nn.init.trunc_normal_(table, generator=generator)
 
 
 def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:

@@ -13,8 +13,10 @@ Ported: `train_step`, `train_step_multi`, `train_step_multi_flat`,
 `train(...)` with `steps_per_call`, every `feed` mode, `eval_interval`,
 `save_interval`, `defer_metrics`, `scorer=` and a JSONL `log_file`;
 `evaluate` on mask batches, id batches (`device_masks=True`), through a
-`CachedDotProductScorer` and with `dump_path`; `evaluate_temporal`, the
-next-item ranking of the sequence models; `save` / `restore` in the
+`CachedDotProductScorer`, with `dump_path`, and on per-record regression
+batches (`RegressionEvalSampler`: MSE); `evaluate_temporal`, the
+next-item ranking of the sequence models; `train(update_interval=,
+update_fn=)`, ItrMLP's schedule of table updates; `save` / `restore` in the
 JAX package's checkpoint format; warm start from `init_model_dir`;
 `profile` through `torch.profiler`.
 
@@ -30,9 +32,6 @@ to `model.loss(batch, generator=...)` (JAX passes a per-step rng,
 sampled-softmax candidates) draws from it, a model that draws
 nothing leaves it where it was, so device-sampled streams do not move.
 The same generator drives on-device sampling.
-
-Not in this slice, each coming with the model that needs it: the
-per-record regression eval, and `update_interval` / `update_fn`.
 
 Behaviours kept from the JAX package and tested: `feed='auto'` reads a
 batch as stacked whenever every value has ndim >= 2 and leading dim k;
@@ -59,8 +58,8 @@ from openrec_tpu_torch import checkpoint as ckpt_lib
 from openrec_tpu_torch.convert import flatten_tree, unflatten_like
 from openrec_tpu_torch.data.pipeline import device_iterator, to_device
 from openrec_tpu_torch.device import resolve_device
-from openrec_tpu_torch.metrics import (DeviceDictMean, DeviceMean, DictMean,
-                                       Mean, ids_to_masks)
+from openrec_tpu_torch.metrics import (MSE, DeviceDictMean, DeviceMean,
+                                       DictMean, Mean, ids_to_masks)
 from openrec_tpu_torch.metrics.ranking import ranking_metrics
 from openrec_tpu_torch.training.optim import apply_updates, lazy_adam
 from openrec_tpu_torch.training.sparse import make_sparse_train_step
@@ -247,13 +246,24 @@ class Trainer:
         pred = self.model.score({"user_id": user_id})
         return ranking_metrics(pos_mask, pred, excl_mask, at=at)
 
+    @torch.no_grad()
+    def _regression_eval_batch(self, batch):
+        """Per-record squared error of a regression batch (JAX
+        `trainer.py:339-356`): the score row of every row of the padded
+        batch (its padding rows enter a batch norm's statistics, as in
+        JAX), each record's item gathered from it."""
+        pred = self.model.score({"user_id": batch["user_id"]})
+        pred = pred.gather(1, batch["item_id"].long()[:, None])[:, 0]
+        return {"MSE": MSE(pred, batch["label"])}
+
     def evaluate(self, eval_sampler, at=(50, 100),
                  eval_fn: Callable = None, scorer=None,
                  eval_chunk: int = 16384,
                  dump_path: Optional[str] = None,
                  defer_metrics: bool = False) -> dict:
         """Run one epoch of an EvaluationSampler; returns metric means.
-        Accepts mask batches and id batches (device_masks=True).
+        Accepts mask batches, id batches (device_masks=True) and
+        per-record regression batches (RegressionEvalSampler: MSE).
 
         scorer: optional CachedDotProductScorer; id batches then take its
         chunked giant-catalog path (O(B*eval_chunk) memory).
@@ -291,10 +301,6 @@ class Trainer:
                 frac = (f"{i_batch + 1}/{n_total}" if n_total
                         else f"{i_batch + 1}")
                 print(f"  eval batch {frac}", end="\r", flush=True)
-            if "label" in batch and "item_id" in batch:
-                raise NotImplementedError(
-                    "per-record regression eval comes with the models that "
-                    "use it; the port evaluates ranking batches")
             dev_batch = to_device(
                 {k: v for k, v in batch.items() if k != "valid"},
                 self.device)
@@ -302,6 +308,8 @@ class Trainer:
             if eval_fn is not None:
                 out = eval_fn(self.params, user_id, dev_batch["pos_mask"],
                               dev_batch["excl_mask"])
+            elif "label" in batch and "item_id" in batch:
+                out = self._regression_eval_batch(dev_batch)
             elif scorer is not None and "pos_ids" in batch:
                 out = scorer.eval_metrics(
                     self.params, user_id, dev_batch["pos_ids"],
@@ -406,6 +414,8 @@ class Trainer:
               train_iter_hook: Callable = None,
               steps_per_call: int = 1,
               scorer=None, eval_chunk: int = 16384,
+              update_interval: Optional[int] = None,
+              update_fn: Callable = None,
               defer_metrics: bool = False,
               feed: str = "auto",
               verbose: bool = True) -> dict:
@@ -434,6 +444,14 @@ class Trainer:
           ahead (pinned, non_blocking), so the copy of call i+1 overlaps
           the steps of call i; total_iter must be a multiple of k.
         scorer: optional CachedDotProductScorer for the interval evals.
+        update_interval/update_fn: every update_interval iterations (after
+          the call's loss is recorded, before save and eval) call
+          update_fn(), by default `model.update_embeddings` (ItrMLP's
+          table update); intervals should be multiples of
+          steps_per_call. update_fn works IN PLACE on the model and takes
+          no argument, where JAX's maps params to params
+          (`openrec_tpu/training/trainer.py:565-566, 596-597`), as the
+          port's `post_step` does.
         defer_metrics: keep the losses and eval metrics on the device for
           the whole run and copy them once at the end; interval console
           lines then show it/s only, the full records (and JSONL) follow
@@ -464,6 +482,8 @@ class Trainer:
             if fused_feed is not None and total_iter % steps_per_call:
                 raise ValueError("flat/stacked feeds need total_iter % "
                                  "steps_per_call == 0")
+        if update_interval and update_fn is None:
+            update_fn = self.model.update_embeddings
 
         log(_color(f"[openrec_tpu_torch] start training "
                    f"{type(self.model).__name__} for {total_iter} "
@@ -492,6 +512,9 @@ class Trainer:
                 loss if defer_metrics else
                 (loss.cpu().numpy() if isinstance(loss, torch.Tensor)
                  else loss))
+
+            if update_interval and i % update_interval == 0:
+                update_fn()
 
             if save_interval and self.save_model_dir \
                     and i % save_interval == 0:

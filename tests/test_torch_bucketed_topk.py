@@ -307,12 +307,13 @@ def test_f32_plan_k3_bound_pass():
 
 @pytest.mark.parametrize("case", [c for c in chip_smoke.K1K2_CASES
                                   if c[0].startswith(("lastfm", "citeulike",
-                                                      "tradesy", "amazon"))],
+                                                      "tradesy", "amazon",
+                                                      "netflix"))],
                          ids=lambda c: c[0])
 def test_serving_cases_sit_at_their_methods_buckets(case):
     """Phase 2's serving shapes sit at the bucket `bucket_score_topk`
     picks for the method of their kernel (K1 `pallas` at 0.99, K2
-    `pallas2` at 0.995, k 100): LastFM's 2 and 8."""
+    `pallas2` at 0.995, k 100): LastFM's 2 and 8, Netflix's 2 and 16."""
     name, _, I, _, _, bucket, _ = case
     top2 = "K2" in name
     assert bucket == choose_bucket(I, 100, recall_target=0.995 if top2

@@ -15,9 +15,11 @@ EXAMPLES_DIR = os.path.join(REPO, "openrec_tpu_torch", "examples")
 EXAMPLES = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
                   if f.endswith(".py") and f != "__init__.py")
 # the JAX package's examples that the port carries so far
-PORTED = ["bpr_citeulike", "bpr_device_sampled", "pmf_citeulike",
-          "rnn_rec_lastfm", "serving_retrieval", "ucml_citeulike",
-          "vanilla_youtube_rec_lastfm", "vbpr_tradesy", "youtube_rec_lastfm"]
+PORTED = ["bpr_citeulike", "bpr_device_sampled", "dlrm_criteo",
+          "fairness_analysis", "itr_mlp", "pmf_citeulike", "rnn_rec_lastfm",
+          "serving_retrieval", "tutorial_basics", "tutorial_extending",
+          "ucml_citeulike", "vanilla_youtube_rec_lastfm", "vbpr_tradesy",
+          "youtube_rec_lastfm"]
 
 
 def test_every_example_is_covered():
@@ -43,6 +45,19 @@ def test_example_smoke(name, tmp_path):
     elif name == "vbpr_tradesy" or name.endswith("_lastfm"):
         # its own loop prints one line an eval, as the JAX script does
         assert "Iter 30  loss " in proc.stdout and "AUC=" in proc.stdout
+    elif name == "itr_mlp":
+        # the per-record regression eval after the identity pretraining
+        assert "Iter 30 " in proc.stdout and "[val] MSE=" in proc.stdout
+    elif name == "dlrm_criteo":
+        assert "Iter 30  loss " in proc.stdout and "val AUC" in proc.stdout
+    elif name == "fairness_analysis":
+        assert "high-activity" in proc.stdout
+    elif name == "tutorial_basics":
+        assert "Part 2: per-gender accuracy" in proc.stdout
+        assert "tail-item share of top-10" in proc.stdout
+    elif name == "tutorial_extending":
+        assert proc.stdout.count("[test] AUC=") == 3
+        assert "max item-embedding norm after censoring" in proc.stdout
     else:
         assert "Iter 30 " in proc.stdout and "[val] AUC=" in proc.stdout
     if name in ("bpr_citeulike", "pmf_citeulike"):

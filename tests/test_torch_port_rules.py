@@ -189,3 +189,21 @@ def test_sequence_entry_points_need_cuda_or_explicit_cpu(name):
     tensors = (list(made.parameters()) if isinstance(made, torch.nn.Module)
                else [made._items])
     assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_itr_mlp_needs_cuda_or_explicit_cpu():
+    """ItrMLP defaults to CUDA like every other entry point, and runs on
+    the CPU when asked, its pretraining inputs drawn there too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import openrec_tpu_torch as port
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.ItrMLP(5, 4, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.ItrMLP(5, 4, 3, pretrained_user_embeddings=np.zeros((5, 3)))
+    made = port.ItrMLP(5, 4, 3, device="cpu")
+    assert all(t.device.type == "cpu" for t in made.parameters())
+    made.pretrain_identity(torch.Generator().manual_seed(0), steps=2,
+                           batch=4)
+    made.update_embeddings()
+    assert made.serving_tables()[0].device.type == "cpu"
