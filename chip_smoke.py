@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,9  # the visual family alone
     python3 chip_smoke.py --phases 1,10 # the sequence models alone
     python3 chip_smoke.py --phases 1,11 # ItrMLP at Netflix width alone
+    python3 chip_smoke.py --phases 1,12 # the distribution layer alone
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
@@ -31,7 +32,9 @@ failure raises and exits non-zero:
      a catalog of fewer than 8*Kb items, and the Amazon, CiteULike,
      Tradesy (bf16 D = 100: tau's scalar item_score path), LastFM
      (fp32 D = 32; D = 50 without a bias) and Netflix shapes (fp32 D =
-     20, and D = 20 off the tiling). Values
+     20, and D = 20 off the tiling); K1/K2 also at phase 12's Amazon row
+     shards (m = 2: 225,083 rows, m = 4: 112,542 with two pad rows at
+     bias -1e30), at the buckets the two methods pick there. Values
      within rtol=atol=1e-5; an id may differ only where the two picks
      score within that tolerance (a different summation order); K2's
      second slot as id sets. Every user must have at least min(k, I) K3
@@ -94,7 +97,13 @@ failure raises and exits non-zero:
      peak memory. Checks: the loss falls and val AUC rises on the sparse
      path, no value is NaN, 10,000 sampled rows of the fused table that no
      batch touched are bit-identical afterwards, and a bf16 forward is
-     within 2e-2 of the fp32 one.
+     within 2e-2 of the fp32 one. (c) The sparse step's four dedup modes
+     (flat, columns, mixed, hash) from the same init, 10 steps each under
+     torch.use_deterministic_algorithms(True): params and moments
+     bit-identical to the flat mode's (or, as a finding, within rtol
+     1e-6); then 50 timed steps each: wall ms/step, device busy ms,
+     launches, idle share, the hash mode's host checks a step and the
+     rows one batch gathers.
 
   7. the rest of the tf2 zoo (PMF, WRMF, GMF, UCML) at phase 5's width,
      data and optimizer (dim 50, batch 1000, lazy_adam lr 1e-3): 300
@@ -238,6 +247,28 @@ failure raises and exits non-zero:
      device busy ms and launches a step, idle share (one profiled 10-step
      call), peak memory, the device ms of one update, seconds by part.
 
+ 12. the distribution layer (`openrec_tpu_torch/parallel/`) on the card:
+     a one-rank NCCL process group (its TCPStore on a free localhost
+     port; a failed init raises) and a 1 x 1 ('data', 'model') mesh.
+     (a) At phase 3's Amazon serving shape (450,166 x 64 bf16 items,
+     99,473 users, 8 requests of 256, k 100), `sharded_pallas_topk` with
+     per_bucket 1 (target 0.99) and 2 (0.995) must equal the
+     single-device `bucket_score_topk` bit for bit, K1 and K2 launched
+     once a request. (b) The shard-local parts for m = 2 and m = 4 row
+     shards (225,083 and 112,542 rows, the last shard's two pad rows at
+     bias -1e30) called in turn in this process and merged: every score
+     the fp32 score at its id, recall against the exact top-k at least
+     the target less 0.01, ids those of the same merge over K1's / K2's
+     plain versions but for near-ties. (c) `make_parallel_sparse_
+     train_step` at world 1 in every dedup mode at full Criteo-Kaggle
+     width (batch 4096): 10 steps under deterministic algorithms,
+     bit-identical to the single-device sparse step of that mode from the
+     same init; then the flat mode's wall ms/step both ways. (d)
+     ParallelTrainer on BPR at phase 5's CiteULike width and data, 200
+     host-fed steps; `sharded_dot_eval_metrics` over the val id batches
+     equal to the trainer's dense evaluate (rtol 1e-5, atol 1e-6); a
+     sharded checkpoint restored into a fresh trainer bit for bit.
+
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
 torch.profiler (device time by kernel, idle share).
@@ -245,11 +276,15 @@ torch.profiler (device time by kernel, idle share).
 Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
 {"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
-an {"itr": ...} line, a {"kernels": [...]} line (K1, K2, K3; `launches`
+an {"itr": ...} line, a {"parallel": ...} line, a {"kernels": [...]}
+line (K1, K2, K3; `launches`
 from the serving path for K1/K2 and the training path for K3,
 `launches_zoo` from phase 7, `launches_legacy` from phase 8,
 `launches_visual` from phase 9, `launches_sequence` from phase 10,
-`launches_itr` from phase 11; each with a `tradesy` entry whose
+`launches_itr` from phase 11, `launches_parallel` from phase 12 (a);
+K1 and K2 with `amazon_shard2` / `amazon_shard4` entries, the per-shard
+shapes timed in phase 4, whose `launches` count phase 12 (b)'s; each with
+a `tradesy` entry whose
 `launches` count phase 9's VBPR requests, a `lastfm` entry whose
 `launches` count phase 10's RNNRec requests and a `netflix` entry whose
 `launches` count phase 11's ItrMLP requests), and last
@@ -264,6 +299,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -313,11 +349,13 @@ LASTFM = dict(name="lastfm", dim=32, dtype="float32",
 NETFLIX = dict(name="netflix", users=480_189, items=17_770, dim=20,
                dtype="float32")
 BATCH, K, REQUESTS = 256, 100, 8
+# the Amazon catalog's row shards over m = 2 and m = 4 ranks (pad_rows)
+SHARD2, SHARD4 = 225_083, 112_542
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 12)
+PHASES = range(1, 13)
 
 
 def fail(msg):
@@ -475,6 +513,13 @@ K1K2_CASES = [
     ("f32 D=20 twin members", 40, 30_000, 20, "float32", 16, "twins"),
     ("f32 D=20 view one element in", 20, 5_000, 20, "float32", 4,
      "element"),
+    # phase 12's row shards of the Amazon catalog at the buckets `pallas`
+    # and `pallas2` pick there: m = 2 (225,083 rows) and m = 4 (112,542,
+    # the last shard's two pad rows zero at bias -1e30)
+    ("amazon shard m=2 K1 shape", BATCH, SHARD2, 64, "bfloat16", 32, ""),
+    ("amazon shard m=2 K2 shape", BATCH, SHARD2, 64, "bfloat16", 128, ""),
+    ("amazon shard m=4 K1 shape", BATCH, SHARD4, 64, "bfloat16", 16, "pad2"),
+    ("amazon shard m=4 K2 shape", BATCH, SHARD4, 64, "bfloat16", 64, "pad2"),
 ]
 
 
@@ -491,6 +536,9 @@ def k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket, layout):
         odd = ((t % blk) // 128) % 2 == 1
         v[odd] = v[t[odd] - 128]
         b[odd] = b[t[odd] - 128]
+    if layout == "pad2":                # pad_rows' zero rows, never picked
+        v[-2:] = 0.0
+        b[-2:] = -1e30
     v = v.to(dt)
     if layout == "row":
         v = torch.cat([v[:1], v])[1:]
@@ -774,15 +822,43 @@ def phase_serve(torch, port, cfg, rng, dev):
           f"{got['AUC'].mean().item():.6f} matches the dense metrics",
           flush=True)
     latency = measure_requests(torch, scorer, params, rng, users)
+    routes = ordered_routes(torch, port, scorer, params, rng, users,
+                            requests[0], cfg["name"])
     return {
         "config": {k: cfg[k] for k in ("users", "items", "dim", "dtype")},
         "setup_s": setup_s,
         "launches": launches,
         "recall_vs_exact": recall,
         "latency": latency,
+        "ordered_routes": routes,
         "profile": profile_requests(torch, scorer, params, rng, users,
                                     latency),
     }
+
+
+def ordered_routes(torch, port, scorer, params, rng, users, req, name):
+    """`topk_ordered`'s two routes forced on every method's rows: the
+    stable sort of the whole row's order keys (no host check) and the
+    float path (two sorts of [B, k] and one host check). Both must return
+    the same ids on `req`; returns each route's request p50 ms by
+    method."""
+    ot = port.ops.ordered_topk
+    saved, ids, out = ot.SHORT_ROW, {}, {}
+    try:
+        for route, short in (("sort", 1 << 62), ("float", 0)):
+            ot.SHORT_ROW = short
+            ids[route] = {m: _request(scorer, params, req, m)[1]
+                          for m in METHODS}
+            out[route] = {m: v["p50_ms"] for m, v in measure_requests(
+                torch, scorer, params, rng, users).items()}
+    finally:
+        ot.SHORT_ROW = saved
+    for m in METHODS:
+        if not torch.equal(ids["sort"][m], ids["float"][m]):
+            fail(f"{name} {m}: topk_ordered's routes return other ids")
+    print(f"{name}: topk_ordered routes, request p50 ms "
+          f"(SHORT_ROW {saved}) {json.dumps(out)}", flush=True)
+    return out
 
 
 def _request(scorer, params, req, method):
@@ -1122,7 +1198,8 @@ KAGGLE = dict(m_spa=16, ln_emb=CRITEO_COUNTS, ln_bot=(512, 256, 64, 16),
 DLRM_RUN = dict(flagship_batch=256, flagship_steps=20, batch=4096, lr=1e-3,
                 records=1_000_000, val=8192, warmup_steps=10,
                 sparse_steps=300, dense_steps=20, profiled_steps=5,
-                untouched_sample=10_000)
+                untouched_sample=10_000, mode_det_steps=10,
+                mode_timed_steps=50)
 
 
 def roc_auc(pred, label):
@@ -1330,6 +1407,8 @@ def dlrm_criteo_kaggle(torch, port, seed, dev, cfg, run):
              f"{out['bf16_forward_max_abs_diff']} > 2e-2")
     del model, trainer, before, after
     torch.cuda.empty_cache()
+    out["modes"] = dlrm_dedup_modes(torch, port, seed, dev, cfg, run,
+                                    batches)
 
     # the dense path: separate tables, lazy_adam over every row
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1339,6 +1418,102 @@ def dlrm_criteo_kaggle(torch, port, seed, dev, cfg, run):
                            device=dev)
     out["dense"] = dlrm_path(torch, trainer, batches, run, "dense")
     del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+DEDUP_MODES = ("flat", "columns", "mixed", "hash")
+
+
+def sparse_snapshot(torch, model, state):
+    """{name: tensor} of a sparse run's params and moments (references;
+    `.clone()` them to keep a step's values)."""
+    out = {k: p.detach() for k, p in model.params().items()}
+    for m in ("mu", "nu"):
+        for path, t in getattr(state["sparse"], m).items():
+            out[f"{m}/{'/'.join(map(str, path))}"] = t
+    return out
+
+
+def sparse_state_equal(torch, a, b):
+    """(bit-identical, max relative difference) of two `sparse_snapshot`s."""
+    if a.keys() != b.keys():
+        fail(f"sparse snapshots differ in their leaves: {sorted(a)} "
+             f"{sorted(b)}")
+    same, worst = True, 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if not torch.equal(x, y):
+            same = False
+            worst = max(worst, ((x - y).abs() / y.abs().clamp(min=1e-30))
+                        .max().item())
+    return same, worst
+
+
+def dlrm_dedup_modes(torch, port, seed, dev, cfg, run, batches):
+    """The four dedup modes of the fused sparse step at full Criteo-Kaggle
+    width, each from the same init: 10 steps under
+    torch.use_deterministic_algorithms(True), which must leave params and
+    moments bit-identical to the flat mode's (the fallback: rtol 1e-6, a
+    finding); then `mode_timed_steps` timed steps each with wall ms/step,
+    device busy ms, launches and idle share (torch.profiler), the hash
+    mode's host checks and the gathered row count of one batch."""
+    from openrec_tpu_torch.training import sparse as tsparse
+    n_det, n_timed = run["mode_det_steps"], run["mode_timed_steps"]
+    out, ref = {}, None
+    for mode in DEDUP_MODES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = port.DLRM(**cfg, fused_tables=True, device=dev,
+                          generator=gen)
+        spec = tsparse.dlrm_fused_table_spec(model, mode=mode)
+        trainer = port.Trainer(model, lr=run["lr"], device=dev,
+                               sparse_tables=spec)
+        torch.use_deterministic_algorithms(True)
+        try:
+            losses, _ = run_steps(torch, trainer, batches[:n_det])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        r = {"det_losses": losses.tolist()}
+        snap = sparse_snapshot(torch, model, trainer.opt_state)
+        if ref is None:                 # flat's state after the 10 steps
+            ref = ({k: v.clone() for k, v in snap.items()}, losses)
+            r["vs_flat"] = "reference"
+        else:
+            same, worst = sparse_state_equal(torch, snap, ref[0])
+            same = same and np.array_equal(losses, ref[1])
+            r["vs_flat"] = {"bit_identical": same, "max_rel_diff": worst}
+            if not same and worst > 1e-6:
+                fail(f"dlrm mode {mode}: {n_det} deterministic steps differ "
+                     f"from the flat mode's beyond rtol 1e-6 ({worst})")
+        ids = {k: torch.as_tensor(v, device=dev)
+               for k, v in batches[n_det].items()}
+        uids, valid, _ = tsparse._dedup(spec["embed_fused"](ids), dev, None)
+        r["gathered_rows"] = int(uids.shape[0])
+        r["unique_ids"] = int(valid.sum())
+        checks = tsparse._insert_hashed.host_checks
+        timed = batches[n_det:n_det + n_timed]
+        _, ms = run_steps(torch, trainer, timed)
+        r["host_checks_per_step"] = \
+            (tsparse._insert_hashed.host_checks - checks) / len(timed)
+        prof_it = iter(batches[n_det + n_timed:])
+        profile = profile_device(torch, lambda: trainer.train_step(
+            next(prof_it)), run["profiled_steps"], ms)
+        r.update({"ms_per_step": ms,
+                  "device_busy_ms_per_step":
+                      profile["device_busy_ms_per_call"],
+                  "device_ops_per_step": profile["device_ops_per_call"],
+                  "idle_share": profile["idle_share"]})
+        out[mode] = r
+        print(f"dlrm criteo-kaggle mode {mode}: vs flat "
+              f"{json.dumps(r['vs_flat'])}; {r['ms_per_step']:.3f} ms/step, "
+              f"device busy {r['device_busy_ms_per_step']:.3f} ms, "
+              f"{r['device_ops_per_step']:.0f} launches, idle "
+              f"{r['idle_share']:.3f}; gathered rows {r['gathered_rows']} "
+              f"({r['unique_ids']} unique ids); host checks/step "
+              f"{r['host_checks_per_step']:.2f}", flush=True)
+        del model, trainer, snap
+        torch.cuda.empty_cache()
+    del ref
     torch.cuda.empty_cache()
     return out
 
@@ -3376,6 +3551,332 @@ def itr_run(torch, port, seed, dev, log_dir, run):
 
 # ------------------------------------------------------------ phase 4
 
+# ------------------------------------------------------------ phase 12
+
+PARALLEL = dict(shards=(2, 4), sparse_steps=10, sparse_timed=20, batch=4096,
+                lr=1e-3, trainer_steps=200, trainer_k=100, trainer_batch=1000,
+                trainer_lr=1e-3, dim=50)
+
+
+def one_rank_mesh(torch, par, dev):
+    """A one-rank NCCL process group (its TCPStore on a free localhost
+    port) and a 1 x 1 ('data', 'model') mesh. A failed init raises."""
+    import torch.distributed as dist
+    t = time.perf_counter()
+    par.initialize_multihost(f"127.0.0.1:{par.mesh._free_port()}",
+                             num_processes=1, process_id=0, device=dev)
+    mesh = par.make_mesh(1, 1, device=dev)
+    return mesh, {"backend": dist.get_backend(), "world": 1,
+                  "mesh": list(mesh.mesh.shape),
+                  "init_s": time.perf_counter() - t}
+
+
+def shard_merge(torch, par, bt, u, Vp, bp, m, target, per_bucket, plain):
+    """The shard-local parts of `sharded_pallas_topk` for m shards of the
+    padded table, called in turn in this process, then merged. plain=True
+    runs K1's / K2's plain version per shard instead of the kernel."""
+    n = Vp.shape[0] // m
+    vals, ids = [], []
+    for s in range(m):
+        v, b = Vp[s * n:(s + 1) * n], bp[s * n:(s + 1) * n]
+        if plain:
+            bucket = bt.choose_bucket(n, K, recall_target=target,
+                                      per_bucket=per_bucket)
+            out = bt.bucket_max_plain(u, v, b, bucket,
+                                      top2=per_bucket == 2)
+            cv = torch.cat(out[0::2], dim=1)
+            ci = torch.cat(out[1::2], dim=1)
+            tv, pos = par.embedding.topk_ordered(cv, K)
+            vals.append(tv)
+            ids.append(ci.gather(1, pos) + s * n)
+        else:
+            tv, ti = par.embedding.pallas_topk_local(
+                u, v, b, K, s, recall_target=target, per_bucket=per_bucket)
+            vals.append(tv)
+            ids.append(ti)
+    return par.merge_topk(torch.cat(vals, dim=1), torch.cat(ids, dim=1), K)
+
+
+def parallel_retrieval(torch, par, bt, mesh, seed, dev, run):
+    """(a) `sharded_pallas_topk` on the one-rank mesh at the Amazon serving
+    shape against the single-device `bucket_score_topk`, bit for bit,
+    K1/K2 launched once a request; (b) the shard-local parts for m = 2 and
+    m = 4 in one process, merged: every score the fp32 score at its id,
+    recall against 'exact' at least the target less 0.01, ids equal to
+    the same merge over the plain versions but for near-ties."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    I, D = AMAZON["items"], AMAZON["dim"]
+    V = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05).to(
+        torch.bfloat16)
+    b = torch.randn(I, generator=gen, device=dev) * 0.01
+    U = (torch.rand(AMAZON["users"], D, generator=gen, device=dev) * 0.1
+         - 0.05).to(torch.bfloat16)
+    rng = np.random.default_rng(seed + 22)
+    reqs = [U[torch.as_tensor(rng.choice(AMAZON["users"], BATCH,
+                                         replace=False), device=dev)]
+            for _ in range(REQUESTS)]
+    out = {"a": {}, "b": {}}
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores}
+    for kname, method in (("K1", "pallas"), ("K2", "pallas2")):
+        pb, target = (2 if kname == "K2" else 1), TARGETS[method]
+        fn = counters[kname]
+        launched, ms_sharded, ms_single = 0, [], []
+        for u in reqs:
+            before = fn.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sv, si = par.sharded_pallas_topk(u, V, b, K, mesh,
+                                             recall_target=target,
+                                             per_bucket=pb)
+            torch.cuda.synchronize()
+            ms_sharded.append((time.perf_counter() - t) * 1e3)
+            launched += fn.launches - before
+            t = time.perf_counter()
+            rv, ri = bt.bucket_score_topk(u, V, b, K, recall_target=target,
+                                          per_bucket=pb)
+            torch.cuda.synchronize()
+            ms_single.append((time.perf_counter() - t) * 1e3)
+            if not (torch.equal(sv, rv) and torch.equal(si, ri)):
+                fail(f"parallel (a) {method}: the one-rank sharded top-k "
+                     "differs from bucket_score_topk")
+        if launched != REQUESTS:
+            fail(f"parallel (a): {kname} launched {launched} times over "
+                 f"{REQUESTS} requests")
+        p50 = float(np.median(ms_sharded))
+        prof = profile_device(torch, lambda: par.sharded_pallas_topk(
+            reqs[0], V, b, K, mesh, recall_target=target, per_bucket=pb),
+            5, p50)
+        out["a"][kname] = {"launches": launched, "bit_identical": True,
+                           "p50_ms_sharded": p50,
+                           "p50_ms_single": float(np.median(ms_single)),
+                           "device_ms_sharded":
+                               prof["device_busy_ms_per_call"],
+                           "device_ops_sharded": prof["device_ops_per_call"]}
+    for m in run["shards"]:
+        pad = par.pad_rows(I, m) - I
+        Vp = torch.cat([V, V.new_zeros(pad, D)])
+        bp = torch.cat([b, b.new_full((pad,), -1e30)])
+        for kname, method in (("K1", "pallas"), ("K2", "pallas2")):
+            pb, target = (2 if kname == "K2" else 1), TARGETS[method]
+            fn = counters[kname]
+            launched, recall, err, ties = 0, [], 0.0, 0
+            for u in reqs:
+                before = fn.launches
+                vals, ids = shard_merge(torch, par, bt, u, Vp, bp, m,
+                                        target, pb, plain=False)
+                launched += fn.launches - before
+                full = u.float() @ V.float().T + b
+                ev, ei = par.embedding.topk_ordered(full, K)
+                pv, pi = shard_merge(torch, par, bt, u, Vp, bp, m, target,
+                                     pb, plain=True)
+                e, bad, tie = check_topk(torch, vals, ids, pv, pi, full,
+                                         f"parallel (b) m={m} {method}")
+                if bad:
+                    fail(f"parallel (b) m={m} {method}: {bad} ids differ "
+                         "from the plain merge beyond near-ties")
+                err, ties = max(err, e), ties + tie
+                recall.append(np.mean([
+                    len(set(a) & set(c)) / K for a, c in
+                    zip(ids.tolist(), ei.tolist())]))
+            rec = float(np.mean(recall))
+            if rec < target - 0.01:
+                fail(f"parallel (b) m={m} {method}: recall {rec} < "
+                     f"{target} - 0.01")
+            if launched != REQUESTS * m:
+                fail(f"parallel (b) m={m}: {kname} launched {launched} "
+                     f"times, want {REQUESTS * m}")
+            out["b"][f"m{m}_{kname}"] = {
+                "shard_rows": Vp.shape[0] // m, "launches": launched,
+                "recall_vs_exact": rec, "max_abs_err_vs_plain": err,
+                "id_mismatch_tie": ties}
+    return out
+
+
+def parallel_sparse(torch, port, par, mesh, seed, dev, run, cfg=KAGGLE):
+    """(c) `make_parallel_sparse_train_step` on the one-rank mesh in every
+    dedup mode at full Criteo-Kaggle width: 10 steps under deterministic
+    algorithms, bit-identical to the single-device sparse step of the same
+    mode from the same init; then the flat mode's wall ms/step both ways
+    (the distribution layer's host time at world 1)."""
+    from openrec_tpu_torch.training import sparse as tsparse
+    rng = np.random.default_rng(seed + 31)
+    n, n_timed = run["sparse_steps"], run["sparse_timed"]
+    batches = [dlrm_batch(rng, cfg, run["batch"]) for _ in range(n + n_timed)]
+    out = {}
+
+    def model():
+        return port.DLRM(**cfg, fused_tables=True, device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+
+    for mode in DEDUP_MODES:
+        single = model()
+        tr = port.Trainer(single, lr=run["lr"], device=dev,
+                          sparse_tables=tsparse.dlrm_fused_table_spec(
+                              single, mode=mode))
+        sharded = model()
+        step, init = par.make_parallel_sparse_train_step(
+            sharded, tsparse.dlrm_fused_table_spec(sharded, mode=mode),
+            mesh, learning_rate=run["lr"])
+        _, state, _ = init()
+        torch.use_deterministic_algorithms(True)
+        try:
+            ls = [tr.train_step(bt_)[0] for bt_ in batches[:n]]
+            lp = []
+            for bt_ in batches[:n]:
+                state, loss = step(state, bt_)
+                lp.append(loss)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same, worst = sparse_state_equal(
+            torch, sparse_snapshot(torch, sharded, state),
+            sparse_snapshot(torch, single, tr.opt_state))
+        same = same and torch.equal(torch.stack(ls), torch.stack(lp))
+        if not same:
+            fail(f"parallel (c) {mode}: the world-1 sparse step differs from "
+                 f"the single-device one (max rel {worst})")
+        r = {"steps": n, "bit_identical": True}
+        if mode == "flat":
+            for what, call in (
+                    ("single", lambda b_: tr.train_step(b_)),
+                    ("world1", lambda b_: step(state, b_))):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for b_ in batches[n:]:
+                    call(b_)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3 / n_timed
+                prof = profile_device(torch, lambda: call(batches[n]), 5, ms)
+                r[f"ms_per_step_{what}"] = ms
+                r[f"device_ms_per_step_{what}"] = \
+                    prof["device_busy_ms_per_call"]
+                r[f"device_ops_per_step_{what}"] = \
+                    prof["device_ops_per_call"]
+        out[mode] = r
+        print(f"parallel (c) {mode}: {n} deterministic steps at world 1 "
+              "bit-identical to the single-device step"
+              + (f"; flat wall {r['ms_per_step_single']:.3f} ms/step "
+                 f"single, {r['ms_per_step_world1']:.3f} ms/step world 1; "
+                 f"device {r['device_ms_per_step_single']:.3f} / "
+                 f"{r['device_ms_per_step_world1']:.3f} ms, launches "
+                 f"{r['device_ops_per_step_single']:.0f} / "
+                 f"{r['device_ops_per_step_world1']:.0f}"
+                 if mode == "flat" else ""), flush=True)
+        del single, tr, sharded, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_trainer(torch, port, par, mesh, seed, dev, run):
+    """(d) ParallelTrainer on BPR at CiteULike width (phase 5's data, dim
+    50, batch 1000, lazy_adam lr 1e-3) on the one-rank mesh: 200 host-fed
+    steps; `sharded_dot_eval_metrics` over the val id batches against
+    the trainer's dense `evaluate` (rtol 1e-5, atol 1e-6); a sharded
+    checkpoint restored into a fresh trainer, bit for bit."""
+    from openrec_tpu_torch.data import Dataset, loaders
+    from openrec_tpu_torch.metrics import DictMean
+    raw = citeulike_data(loaders, seed)
+    U, I, D = raw["total_users"], raw["total_items"], run["dim"]
+    train_ds = Dataset(raw["train_data"], U, I, seed=seed)
+    val_ds = Dataset(raw["val_data"], U, I, seed=seed)
+    val = val_ds.evaluation(BATCH, excl_datasets=[train_ds],
+                            device_masks=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        pt = port.ParallelTrainer(port.BPR(U, I, D, D, device=dev,
+                                           generator=gen),
+                                  mesh, lr=run["trainer_lr"], seed=seed,
+                                  save_model_dir=ckpt_dir)
+        feed = train_ds.pairwise(batch_size=run["trainer_batch"],
+                                 num_parallel_calls=2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pt.train(run["trainer_steps"], feed,
+                 steps_per_call=run["trainer_k"], verbose=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        # train() stopped its feed: a fresh one for the profiled steps
+        extra = train_ds.pairwise(batch_size=run["trainer_batch"],
+                                  num_parallel_calls=2)
+        more = iter(extra)
+        prof = profile_device(torch, lambda: pt.train_step(next(more)), 5,
+                              train_s * 1e3 / run["trainer_steps"])
+        extra.stop()
+        dense = pt.evaluate(val, at=(50, 100))
+        acc = None
+        p = pt.model.params()
+        for batch in val:
+            ids = torch.as_tensor(batch["user_id"], device=dev).long()
+            got = par.sharded_dot_eval_metrics(
+                p["user_embed"].detach()[ids], p["item_embed"].detach(),
+                p["item_bias"].detach(),
+                torch.as_tensor(batch["pos_ids"], device=dev),
+                torch.as_tensor(batch["excl_ids"], device=dev),
+                total_items=I, mesh=mesh, at=(50, 100))
+            got = {k: v.cpu().numpy() for k, v in got.items()}
+            if acc is None:
+                acc = DictMean({k: list(v.shape[1:]) for k, v in got.items()})
+            acc.update_state(got, valid=batch.get("valid"))
+        sharded = acc.result()
+        for k, v in dense.items():
+            if not np.allclose(sharded[k], v, rtol=1e-5, atol=1e-6):
+                fail(f"parallel (d): sharded eval {k} {sharded[k]} != dense "
+                     f"{v}")
+        pt.save()
+        fresh = port.ParallelTrainer(port.BPR(U, I, D, D, device=dev), mesh,
+                                     lr=run["trainer_lr"], seed=seed + 1,
+                                     save_model_dir=ckpt_dir)
+        fresh.restore()
+        from openrec_tpu_torch.convert import flatten_tree
+        a = flatten_tree(pt._state_tree())
+        b = flatten_tree(fresh._state_tree())
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k])
+                                           for k in a):
+            fail("parallel (d): the sharded checkpoint did not restore bit "
+                 "for bit")
+    out = {"steps": run["trainer_steps"], "train_s": train_s,
+           "steps_per_s": run["trainer_steps"] / train_s,
+           "device_ms_per_step": prof["device_busy_ms_per_call"],
+           "device_ops_per_step": prof["device_ops_per_call"],
+           "idle_share": prof["idle_share"],
+           "dense": {k: np.asarray(v).tolist() for k, v in dense.items()},
+           "sharded": {k: np.asarray(v).tolist() for k, v in sharded.items()},
+           "checkpoint_bitwise": True, "leaves": len(a)}
+    print(f"parallel (d) ParallelTrainer BPR citeulike: "
+          f"{out['steps_per_s']:.1f} steps/s host-fed, device "
+          f"{out['device_ms_per_step']:.3f} ms and "
+          f"{out['device_ops_per_step']:.0f} launches a step, idle "
+          f"{out['idle_share']:.3f}; val AUC dense "
+          f"{float(dense['AUC']):.6f} sharded {float(sharded['AUC']):.6f}; "
+          f"checkpoint round trip bitwise ({len(a)} leaves)", flush=True)
+    return out
+
+
+def phase_parallel(torch, port, seed, dev, run=PARALLEL):
+    """Phase 12: the distribution layer on the card (its docstring at the
+    top of this file)."""
+    import torch.distributed as dist
+    from openrec_tpu_torch import parallel as par
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    mesh, info = one_rank_mesh(torch, par, dev)
+    print("parallel mesh", json.dumps(info), flush=True)
+    out = {"mesh": info}
+    t = time.perf_counter()
+    out["retrieval"] = parallel_retrieval(torch, par, bt, mesh, seed, dev,
+                                          run)
+    out["retrieval_s"] = time.perf_counter() - t
+    print("parallel retrieval", json.dumps(out["retrieval"]), flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["sparse"] = parallel_sparse(torch, port, par, mesh, seed, dev, run)
+    out["sparse_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["trainer"] = parallel_trainer(torch, port, par, mesh, seed, dev, run)
+    out["trainer_s"] = time.perf_counter() - t
+    dist.destroy_process_group()
+    return out
+
+
 def nvidia_smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -3455,6 +3956,8 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     tradesy = inputs(TRADESY["items"], TRADESY["dim"], torch.bfloat16)
     lastfm = inputs(LASTFM["items"], LASTFM["dim"], torch.float32)
     netflix = inputs(NETFLIX["items"], NETFLIX["dim"], torch.float32)
+    shards = {"amazon_shard2": inputs(SHARD2, AMAZON["dim"], torch.bfloat16),
+              "amazon_shard4": inputs(SHARD4, AMAZON["dim"], torch.bfloat16)}
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
@@ -3512,11 +4015,26 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
              if c["kernel"] == kname and c["case"].startswith("netflix K")
              and c["bucket"] == entry["netflix"]["shape"]["bucket"]), None)
         entry["netflix"]["launches"] = None
+        for name, (u, v, b) in shards.items():
+            I = v.shape[0]
+            t = time_bucket_kernel(torch, bt, u, v, b, top2, bt.choose_bucket(
+                I, K, recall_target=TARGETS[method],
+                per_bucket=2 if top2 else 1))
+            t["variant"] = "mma-bf16"
+            t["max_abs_err"] = next(
+                (c["max_abs_err"] for c in compare_report
+                 if c["kernel"] == kname and c["I"] == I
+                 and c["bucket"] == t["shape"]["bucket"]), None)
+            t["launches"] = None
+            entry[name] = t
+        entry["launches_parallel"] = None
         entries.append(entry)
         for name, t in (("amazon", entry), ("citeulike", entry["citeulike"]),
                         ("tradesy", entry["tradesy"]),
                         ("lastfm", entry["lastfm"]),
-                        ("netflix", entry["netflix"])):
+                        ("netflix", entry["netflix"]),
+                        ("amazon_shard2", entry["amazon_shard2"]),
+                        ("amazon_shard4", entry["amazon_shard4"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
@@ -3602,7 +4120,7 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
              "launches": None, "launches_zoo": None,
              "launches_legacy": None, "launches_visual": None,
              "launches_sequence": None, "launches_itr": None,
-             "max_abs_err": err}
+             "launches_parallel": None, "max_abs_err": err}
     entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
                          CITEULIKE["dim"], "float32"))
     entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
@@ -3651,6 +4169,9 @@ def main(argv=None):
         ap.error(f"--phases: {sorted(phases - set(PHASES))} is no phase")
     t_start = time.perf_counter()
 
+    # cuBLAS needs a fixed workspace to run deterministically (phases 6
+    # and 12 switch torch.use_deterministic_algorithms on)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -3695,7 +4216,7 @@ def main(argv=None):
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
     serve, kernels = {}, []
-    train = dlrm = zoo = legacy = visual = sequence = itr = None
+    train = dlrm = zoo = legacy = visual = sequence = itr = parallel = None
 
     # phase 2
     if 2 in phases:
@@ -3787,6 +4308,23 @@ def main(argv=None):
             # every phase-11 launch is at the Netflix shape
             entry["launches_itr"] = entry["netflix"]["launches"] = \
                 itr["launches"][entry["name"][:2]]
+        torch.cuda.empty_cache()
+
+    # phase 12
+    if 12 in phases:
+        t12 = time.perf_counter()
+        parallel = phase_parallel(torch, port, args.seed, dev)
+        parallel["phase_s"] = time.perf_counter() - t12
+        for entry in kernels:
+            kname = entry["name"][:2]
+            if kname == "K3":
+                entry["launches_parallel"] = 0
+                continue
+            entry["launches_parallel"] = \
+                parallel["retrieval"]["a"][kname]["launches"]
+            for m in (2, 4):
+                entry[f"amazon_shard{m}"]["launches"] = \
+                    parallel["retrieval"]["b"][f"m{m}_{kname}"]["launches"]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
@@ -3796,6 +4334,8 @@ def main(argv=None):
           + (f"phase 10 (sequence): {sequence['phase_s']:.1f} s; "
              if sequence else "")
           + (f"phase 11 (itr): {itr['phase_s']:.1f} s; " if itr else "")
+          + (f"phase 12 (parallel): {parallel['phase_s']:.1f} s; "
+             if parallel else "")
           + f"chip_smoke: {total_s:.1f} s in all", flush=True)
 
     if args.out is not None:
@@ -3805,12 +4345,13 @@ def main(argv=None):
              "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
              "serve": serve, "training": train, "kernels": kernels,
              "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual,
-             "sequence": sequence, "itr": itr},
+             "sequence": sequence, "itr": itr, "parallel": parallel},
             indent=1))
     if serve:
         print(json.dumps({"requests": {name: {
             "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
-            "launches": s["launches"]} for name, s in serve.items()}}))
+            "launches": s["launches"], "ordered_routes": s["ordered_routes"]}
+            for name, s in serve.items()}}))
     if train:
         print(json.dumps({"training": {
             "use_native": train["host_fed"]["use_native"],
@@ -3826,6 +4367,11 @@ def main(argv=None):
         k = dlrm["criteo_kaggle"]
         print(json.dumps({"dlrm": {
             "flagship_card_vs_cpu": dlrm["flagship_card_vs_cpu"],
+            "modes": {mode: {m: r[m] for m in (
+                "vs_flat", "ms_per_step", "device_busy_ms_per_step",
+                "device_ops_per_step", "idle_share", "gathered_rows",
+                "unique_ids", "host_checks_per_step")}
+                for mode, r in k["modes"].items()},
             "criteo_kaggle": {
                 what: {m: k[what][m] for m in (
                     "ms_per_step", "examples_per_s", "device_busy_ms_per_step",
@@ -3949,6 +4495,15 @@ def main(argv=None):
                    "recall_vs_exact", "score_max_abs_err",
                    "sigmoid_vs_score_max_abs_diff", "k1k2_vs_plain", "k3",
                    "calls", "p50_ms")}}}))
+    if parallel:
+        print(json.dumps({"parallel": {
+            "mesh": parallel["mesh"], "retrieval": parallel["retrieval"],
+            "sparse": parallel["sparse"],
+            "trainer": {m: parallel["trainer"][m] for m in (
+                "steps", "steps_per_s", "device_ms_per_step",
+                "device_ops_per_step", "idle_share", "sharded",
+                "checkpoint_bitwise")},
+            "phase_s": parallel["phase_s"]}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,14 @@ And ItrMLP with its explicit-rating path: frozen tables that
 update_interval=)`), `ExplicitSampler` (`Dataset.explicit`),
 `RegressionEvalSampler` (`Dataset.regression_evaluation`) and the
 per-record MSE eval.
+
+And the last modules: the sparse step's `'columns'`, `'mixed'` and
+`'hash'` dedup modes, and the distribution layer on torch.distributed
+(`parallel`: one process per rank, a ('data', 'model') DeviceMesh over
+NCCL or gloo, row-sharded lookups, K1/K2 retrieval per shard, sharded
+eval, data-parallel dense and sparse steps, per-rank checkpoints in the
+JAX package's format, `ParallelTrainer`, the multi-rank dry run). Every
+module of the JAX package now has its counterpart here.
 """
 
 __version__ = "0.1.0"
@@ -92,8 +100,9 @@ from openrec_tpu_torch.data import (
     PairwiseSampler, PerPosStratifiedPointwiseSampler,
     RandomPointwiseSampler, RegressionEvalSampler,
     StratifiedPointwiseSampler, TemporalEvaluationSampler, TemporalSampler)
-from openrec_tpu_torch.training import (Trainer, adam, keras_adam,
-                                        lazy_adagrad, lazy_adam)
+from openrec_tpu_torch.training import (ParallelTrainer, Trainer, adam,
+                                        keras_adam, lazy_adagrad, lazy_adam)
 from openrec_tpu_torch.training.sparse import (
     dlrm_fused_table_spec, dlrm_table_specs, make_sparse_device_loop,
     make_sparse_train_step)
+from openrec_tpu_torch import parallel

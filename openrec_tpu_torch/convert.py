@@ -21,7 +21,9 @@ is keyed by its field names, as JAX names it (`opt_state/count`,
 SparseAdamState(count, mu, nu), "dense": <dense optimizer state>} crosses
 with `sparse_opt_state_from_jax` / `sparse_opt_state_to_numpy`; its
 moments stay keyed by the table's path tuple, as in JAX
-(`("embed_fused",)`).
+(`("embed_fused",)`). For the distribution layer,
+`shard_params_from_jax` and `shard_opt_state_from_jax` give each rank
+its rows of the same parameters and moments.
 """
 
 from __future__ import annotations
@@ -156,3 +158,25 @@ def sparse_opt_state_to_numpy(state: dict) -> dict:
                        "mu": {p: numpy(v) for p, v in sparse.mu.items()},
                        "nu": {p: numpy(v) for p, v in sparse.nu.items()}},
             "dense": opt_state_to_numpy(state["dense"])}
+
+
+def shard_params_from_jax(tree, mesh, rules=None, device=None):
+    """(this rank's block of each parameter, {path: Sharding}) from a JAX
+    params pytree with numpy leaves, for the distribution layer
+    (`parallel.shard_params`; rules default `DEFAULT_RULES`). Load them
+    into a model whose parameters are already sharded, or shard the model
+    first with `parallel.shard_model`."""
+    from openrec_tpu_torch.parallel.mesh import DEFAULT_RULES, shard_params
+    return shard_params(params_from_jax(tree, device), mesh,
+                        DEFAULT_RULES if rules is None else rules)
+
+
+def shard_opt_state_from_jax(state, shardings: dict, sparse: bool = False,
+                             device=None):
+    """A JAX optimizer state with numpy leaves (`opt_state_from_jax`, or
+    with sparse=True `sparse_opt_state_from_jax`) with every moment cut to
+    this rank's block of its parameter under `shardings`."""
+    from openrec_tpu_torch.parallel.mesh import shard_tree
+    state = sparse_opt_state_from_jax(state, device) if sparse \
+        else opt_state_from_jax(state, device)
+    return shard_tree(state, shardings)

@@ -56,6 +56,31 @@ class Recommender(nn.Module):
         """Full-catalog scores [B, total_items] for serving/evaluation."""
         raise NotImplementedError
 
+    # How the loss reduces over the batch's examples, for `batch_sums`:
+    # "mean" (a batch mean plus, where aux has "l2_loss", l2_weight times
+    # an L2 summed over the batch's looked-up rows), "sum" (every term a
+    # sum over the examples) or None (neither, e.g. a batch norm over the
+    # batch: the loss does not split over data ranks).
+    loss_reduction: str | None = None
+
+    def batch_sums(self, total: torch.Tensor, aux: dict) -> dict:
+        """The parts of `total` (key "total") and of each aux term that
+        are sums over the batch's examples; the rest of each is a batch
+        mean or independent of the batch. A data slice adds its sums whole
+        and the rest by its share of the batch, so that the slices'
+        gradients add up to the whole batch's (`parallel/train.py`).
+        Raises where the loss does not split so."""
+        if self.loss_reduction == "sum":
+            return {"total": total, **aux}
+        if self.loss_reduction == "mean":
+            if "l2_loss" not in aux:
+                return {}
+            return {"total": self.l2_weight * aux["l2_loss"],
+                    "l2_loss": aux["l2_loss"]}
+        raise NotImplementedError(
+            f"{type(self).__name__}'s loss does not split over data ranks "
+            "(no loss_reduction); train it with one data rank")
+
     def grad_transform(self, grads: dict, batch: dict) -> dict:
         """Per-model gradient post-processing between autograd and the
         optimizer (`openrec_tpu/models/base.py:366-370`). Default:

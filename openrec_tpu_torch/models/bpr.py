@@ -15,6 +15,8 @@ from openrec_tpu_torch.modules.losses import l2_half, pairwise_log_loss
 
 
 class BPR(FactorRecommender):
+    loss_reduction = "mean"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_user_embed: int, dim_item_embed: int,
                  l2_weight: float = 1.0, device=None,

@@ -27,6 +27,8 @@ from openrec_tpu_torch.modules.sdae import SDAE
 
 
 class CDL(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  item_features, encoder_dims: Sequence[int] = (),
                  dropout: float = 0.0, l2_reconst: float = 1.0,

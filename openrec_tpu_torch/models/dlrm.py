@@ -38,6 +38,7 @@ from openrec_tpu_torch.modules.mlp import MLP
 
 
 class DLRM(Recommender):
+    loss_reduction = "mean"
 
     def __init__(self, m_spa: int, ln_emb: Sequence[int],
                  ln_bot: Sequence[int], ln_top: Sequence[int],

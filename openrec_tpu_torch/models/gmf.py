@@ -45,6 +45,12 @@ class GMF(FactorRecommender):
         l2 = l2_half(user_vec, item_vec) + self.mlp.l2()
         return task + self.l2_weight * l2, {"loss": task, "l2_loss": l2}
 
+    def batch_sums(self, total: torch.Tensor, aux: dict) -> dict:
+        """A batch mean, plus an L2 of which the rows' part sums over the
+        examples and the MLP's does not depend on the batch."""
+        rows = aux["l2_loss"] - self.mlp.l2()
+        return {"total": self.l2_weight * rows, "l2_loss": rows}
+
     def score(self, batch: dict) -> torch.Tensor:
         return self.user_vecs(batch["user_id"]) @ self.item_embed.T \
             + self.item_bias.reshape(-1)

@@ -25,6 +25,8 @@ from openrec_tpu_torch.modules.losses import (l2_half, multi_neg_eudist_loss,
 
 
 class NBPR(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  l2_weight: float = 0.0, device=None,
                  generator: torch.Generator | None = None):

@@ -58,6 +58,8 @@ def _pair_scores(mlp, user_vec, item, item_chunk):
 
 
 class MLPRec(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_user_embed: int, dim_item_embed: int,
                  mlp_units: Sequence[int] = (64, 1),
@@ -95,6 +97,8 @@ class MLPRec(FactorRecommender):
 
 
 class NeuMF(Recommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_ge_embed: int, dim_mlp_embed: int,
                  mlp_units: Sequence[int] = (64, 1), alpha: float = 0.5,

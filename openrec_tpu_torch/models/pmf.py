@@ -27,6 +27,8 @@ def truncated_normal_init(num: int, dim: int, stddev: float = 0.01,
 
 
 class PMF(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_user_embed: int, dim_item_embed: int, a: float = 1.0,
                  b: float = 1.0, sigmoid: bool = False, l2_reg: float = 0.0,

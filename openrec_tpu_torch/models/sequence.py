@@ -49,6 +49,8 @@ from openrec_tpu_torch.modules.rnn import GRU, LSTM
 
 
 class RNNRec(Recommender):
+    loss_reduction = "mean"
+
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int, num_units: int, cell_type: str = "gru",
                  softmax_samples: Optional[int] = None,
@@ -103,6 +105,8 @@ class RNNRec(Recommender):
 
 
 class VanillaYouTubeRec(Recommender):
+    loss_reduction = "mean"
+
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int,
                  mlp_units: Optional[Sequence[int]] = None,

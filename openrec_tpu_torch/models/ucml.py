@@ -21,6 +21,8 @@ from openrec_tpu_torch.modules.losses import (l2_half,
 
 
 class UCML(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_user_embed: int, dim_item_embed: int,
                  margin: float = 0.5, l2_weight: float = 1.0, device=None,

@@ -36,6 +36,8 @@ from openrec_tpu_torch.modules.mlp import MLP
 
 
 class UserPMF(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  user_features=None, mlp_units: Sequence[int] = (),
                  a: float = 1.0, b: float = 1.0, sigmoid: bool = True,

@@ -97,6 +97,7 @@ class _VisualRecommender(FactorRecommender):
     concatenation; BPR's loss on the fused vectors, and the MLP's 1/B
     gradient rescale where `rescale` is set."""
 
+    loss_reduction = "mean"
     mlp_name = "visual_mlp"
     concat = False
     rescale = True
@@ -202,6 +203,8 @@ class VisualBPR(_VisualRecommender):
 
 
 class VisualCML(VisualBPR):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  mlp_units: Sequence[int] = (), item_features=None,
                  dropout: Optional[float] = None, l2_weight: float = 0.0,
@@ -239,6 +242,8 @@ class VisualCML(VisualBPR):
 
 
 class VisualPMF(_VisualRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  mlp_units: Sequence[int] = (), item_features=None,
                  a: float = 1.0, b: float = 1.0, sigmoid: bool = True,
@@ -274,6 +279,8 @@ class VisualPMF(_VisualRecommender):
 
 
 class VisualGMF(_VisualRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  mlp_units: Sequence[int] = (), item_features=None,
                  l2_weight: float = 0.0, device=None,

@@ -14,6 +14,8 @@ from openrec_tpu_torch.modules.losses import l2_half, pointwise_mse_loss
 
 
 class WRMF(FactorRecommender):
+    loss_reduction = "sum"
+
     def __init__(self, total_users: int, total_items: int,
                  dim_user_embed: int, dim_item_embed: int, a: float = 1.0,
                  b: float = 1.0, sigmoid: bool = False,

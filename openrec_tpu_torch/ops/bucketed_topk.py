@@ -6,9 +6,10 @@ Counterpart of `openrec_tpu/ops/bucketed_topk.py`. `bucket_max_scores`
 the top-1 (or top-2) (score, item id) of u.V^T + b without writing the
 [B, I] scores: item t belongs to bucket `(t // (128*bucket))*128 + t % 128`.
 `bucket_score_topk` (the counterpart of `pallas_score_topk`) finishes with
-an exact top-k over the [B, L] maxima: every returned (score, id) pair is
-exact, and a true top-k item is missed only when two (K2: three) of them
-share a bucket.
+an exact top-k over the [B, L] maxima, equal scores by candidate position
+as `lax.top_k` orders them (`ops/ordered_topk.py`): every returned (score,
+id) pair is exact, and a true top-k item is missed only when two (K2:
+three) of them share a bucket.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/bucket_max.cu`,
 built at first use) and counts the launch in its `launches` attribute; on
@@ -35,6 +36,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from openrec_tpu_torch.ops.ordered_topk import topk_ordered
 
 _LANES = 128                     # bucket stride of the strided layout
 _MAX_VBLOCK_BYTES = 6 << 20      # the JAX package's per-block table budget
@@ -352,7 +355,8 @@ def bucket_score_topk(user_vecs, item_table, item_bias, k: int,
     else:
         vals, ids = bucket_max_scores(user_vecs, item_table, item_bias,
                                       bucket=bucket)
-    top_vals, pos = torch.topk(vals, k, dim=1)
+    # ties by candidate position, as lax.top_k over the candidates
+    top_vals, pos = topk_ordered(vals, k)
     return top_vals, ids.gather(1, pos)
 
 

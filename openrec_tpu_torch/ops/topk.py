@@ -8,8 +8,8 @@ op) has no PyTorch counterpart; exact top-k meets every `recall_target`
 and equals what the JAX package returns on the CPU, where approx_max_k
 is exact too.
 
-`torch.topk` orders exact score ties arbitrarily, while `lax.top_k` puts
-the lower index first; the two can differ only at such ties.
+Both order exact score ties as `lax.top_k` does, the lower id first
+(`ops/ordered_topk.py`).
 
 `fused_score_topk` (K3, the counterpart of the Pallas kernel
 `_fused_topk_kernel`, `openrec_tpu/ops/topk.py:58-141`) returns the exact
@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from openrec_tpu_torch.ops import bucketed_topk as bt
+from openrec_tpu_torch.ops.ordered_topk import topk_ordered
 
 _TILE = 128                  # items per filter tile
 _MAX_K = 2048
@@ -53,8 +54,8 @@ def dot_scores(user_vecs, item_table, item_bias):
 
 
 def topk_xla(user_vecs, item_table, item_bias, k):
-    """(values, ids) of the exact top-k of u.V^T + b."""
-    return torch.topk(dot_scores(user_vecs, item_table, item_bias), k, dim=1)
+    """(values, ids) of the exact top-k of u.V^T + b, ties by id."""
+    return topk_ordered(dot_scores(user_vecs, item_table, item_bias), k)
 
 
 def topk_approx(user_vecs, item_table, item_bias, k,

@@ -1,0 +1,352 @@
+"""Distributed train / eval step builders over a ('data', 'model') mesh.
+
+Counterpart of `openrec_tpu/parallel/train.py`. The JAX step is one GSPMD
+program over the GLOBAL batch; here every rank runs the same step on its
+data slice of it:
+
+  - every leaf a rule shards over 'model' (`DEFAULT_RULES`: the tables)
+    holds this rank's rows (`mesh.shard_model`), and the model's loss
+    reaches it through a `ShardedTable` view (`model.loss(batch,
+    tables=...)`); dense towers stay whole on every rank;
+  - the loss of the slice is scaled so that its gradients, summed over
+    'data', are the global batch's (`data_parallel_objective`: the terms
+    the model sums over its examples by 1, its batch means and its terms
+    independent of the batch by B_local / B, as `Recommender.batch_sums`
+    splits them; a model whose loss does not split so, such as a batch
+    norm over the batch, is refused at more than one data rank); the
+    gradients are summed over 'data' in one all_reduce, and
+    `grad_transform` sees the global batch;
+  - optimizer moments are made from the local leaves, so they follow
+    their parameter's rows;
+  - the sparse step dedups the ids of the GLOBAL batch, so that each row
+    takes one Adam step on the whole batch's gradient as in the GSPMD
+    program; each rank writes back only the rows it holds
+    (`MeshRowLayout`);
+  - the device-sampled builders draw each data rank's slice from its own
+    generator, seeded by `fold_in(seed, data rank)`.
+
+Every builder returns the loss of the global batch, the same on every
+rank. A model whose `post_step` does anything may not shard its tables
+(it would index them by global ids).
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+from openrec_tpu_torch.metrics.ranking import ranking_metrics
+from openrec_tpu_torch.models.base import Recommender
+from openrec_tpu_torch.parallel import collectives as col
+from openrec_tpu_torch.parallel.embedding import ShardedTable
+from openrec_tpu_torch.parallel.mesh import (DATA_AXIS, DEFAULT_RULES,
+                                             MODEL_AXIS, axis_group,
+                                             axis_index, axis_size,
+                                             mesh_device, shard_model)
+from openrec_tpu_torch.training.optim import apply_updates
+from openrec_tpu_torch.training.sparse import (RowLayout,
+                                               make_sparse_train_step)
+
+
+def fold_in(seed: int, index: int) -> int:
+    """A seed for stream `index` of `seed` (jax.random.fold_in's role):
+    a splitmix64 mix, so that streams of nearby seeds and indices share
+    nothing."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(index) + 1) % 2 ** 64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2 ** 64
+    return (z ^ (z >> 31)) % 2 ** 63
+
+
+def rank_generator(seed: int, mesh, device=None) -> torch.Generator:
+    """This data rank's sampling generator: seeded fold_in(seed, rank) on
+    the mesh's device; the ranks of one 'data' row share it."""
+    dev = mesh_device(mesh) if device is None else torch.device(device)
+    return torch.Generator(device=dev).manual_seed(
+        fold_in(seed, axis_index(mesh, DATA_AXIS)))
+
+
+def data_slice(batch: dict, mesh) -> dict:
+    """This rank's contiguous slice of a global batch's leading dim."""
+    d, i = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % d:
+            raise ValueError(f"batch '{k}' of {n} does not split over "
+                             f"{d} data ranks")
+        out[k] = v[i * (n // d):(i + 1) * (n // d)]
+    return out
+
+
+def gather_batch(batch: dict, mesh) -> dict:
+    """The global batch from every data rank's slice (concatenated in data
+    order, as JAX's P('data') sampling lays it out)."""
+    group = axis_group(mesh, DATA_AXIS)
+    return {k: col.all_gather(v, group) for k, v in batch.items()}
+
+
+def _slice_part(value, summed, frac: float):
+    """This slice's share of a term of the global batch's loss: its sum
+    part whole, the rest by `frac`."""
+    if summed is value:
+        return value
+    return value * frac if summed is None else \
+        value * frac + summed * (1.0 - frac)
+
+
+def data_parallel_objective(model, total, aux, frac: float):
+    """The part of the global batch's loss this data slice owns, so that
+    the slices' gradients add up to the global batch's: the part of the
+    loss that sums over examples (`model.batch_sums`) whole, the batch
+    means and the terms independent of the batch by `frac`, this slice's
+    share of the batch. At frac 1 the loss itself."""
+    if frac == 1.0:
+        return total
+    return _slice_part(total, model.batch_sums(total, aux).get("total"),
+                       frac)
+
+
+def _sharded_names(shardings: dict) -> list:
+    return [n for n, sh in shardings.items()
+            if sh.spec and sh.spec[0] == MODEL_AXIS]
+
+
+def _check_model(model, shardings: dict, mesh):
+    if _sharded_names(shardings) and \
+            type(model).post_step is not Recommender.post_step:
+        raise NotImplementedError(
+            f"{type(model).__name__}.post_step indexes its tables by global "
+            "ids; shard them with rules=() (replicated)")
+    if axis_size(mesh, DATA_AXIS) > 1 and model.loss_reduction is None \
+            and type(model).batch_sums is Recommender.batch_sums:
+        raise NotImplementedError(
+            f"{type(model).__name__}'s loss does not split over data ranks "
+            "(no loss_reduction); use a mesh of one data rank")
+
+
+@contextmanager
+def full_params(model, shardings: dict, mesh):
+    """Inside: the model's row-sharded leaves are whole (all_gathered over
+    'model'); after: its shards again. For scoring with `model.score`."""
+    group = axis_group(mesh, MODEL_AXIS)
+    swapped = {}
+    params = model.params()
+    with torch.no_grad():
+        for name in _sharded_names(shardings):
+            p = params[name]
+            swapped[name] = p.data
+            p.data = col.all_gather(p.data, group)
+    try:
+        yield model
+    finally:
+        for name, data in swapped.items():
+            params[name].data = data
+
+
+def _reduce_data(grads: list, mesh) -> list:
+    return col.all_reduce_sum(grads, axis_group(mesh, DATA_AXIS))
+
+
+class MeshRowLayout(RowLayout):
+    """The sparse step's rows on a mesh: a table sharded over 'model' holds
+    rows [shard * n, (shard + 1) * n) here; gathers are masked and summed
+    over 'model', gradients summed over 'data'."""
+
+    def __init__(self, mesh, shardings: dict):
+        self.mesh = mesh
+        self.sharded_names = set(_sharded_names(shardings))
+        self.frac = 1.0 / axis_size(mesh, DATA_AXIS)
+        self.shard = axis_index(mesh, MODEL_AXIS)
+
+    def sharded(self, name):
+        return name in self.sharded_names
+
+    def shard_range(self, name, table):
+        n = table.shape[0]
+        return (self.shard * n if self.sharded(name) else 0), n
+
+    def gather(self, name, table, uids, masked=False):
+        rows = super().gather(name, table, uids, masked)
+        if not self.sharded(name):
+            return rows
+        return col.all_reduce_sum([rows],
+                                  axis_group(self.mesh, MODEL_AXIS))[0]
+
+    def reduce(self, grads):
+        return _reduce_data(grads, self.mesh)
+
+    def objective(self, model, total, aux):
+        return data_parallel_objective(model, total, aux, self.frac)
+
+
+def _dense_step(model, tx, mesh, shardings, opt_state, generator, local,
+                global_batch):
+    """One data-parallel step on this rank's slice; returns the new state
+    and the global batch's loss and aux (detached, the same on every
+    rank)."""
+    frac = 1.0 / axis_size(mesh, DATA_AXIS)
+    params = model.params()
+    names = list(params)
+    views = {n: ShardedTable(params[n], mesh)
+             for n in _sharded_names(shardings)}
+    total, aux = model.loss(local, tables=views or None, generator=generator)
+    # (before the update: a term such as GMF's MLP L2 reads the weights)
+    sums = {} if frac == 1.0 else model.batch_sums(total, aux)
+    objective = _slice_part(total, sums.get("total"), frac)
+    grads = torch.autograd.grad(objective, [params[n] for n in names],
+                                allow_unused=True)
+    grads = _reduce_data([torch.zeros_like(params[n]) if g is None else g
+                          for n, g in zip(names, grads)], mesh)
+    grads = model.grad_transform(dict(zip(names, grads)), global_batch)
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        model.post_step(global_batch)
+    parts = _reduce_data(
+        [objective.detach()] + [_slice_part(v, sums.get(k), frac).detach()
+                                for k, v in aux.items()], mesh)
+    return opt_state, parts[0], dict(zip(aux, parts[1:]))
+
+
+def make_parallel_train_step(model, tx, mesh, rules=DEFAULT_RULES):
+    """Returns (step_fn, init_fn).
+
+    init_fn() -> (params, opt_state, shardings): shards the model's own
+    parameters in place (`shard_model`) and makes tx's state from them.
+    step_fn(opt_state, batch, generator=None) -> (opt_state, loss, aux):
+    `batch` is the GLOBAL batch (every rank passes the same); this rank
+    steps on its data slice. loss and aux are the global batch's."""
+    shardings = {}
+
+    def init_fn():
+        shardings.update(shard_model(model, mesh, rules))
+        _check_model(model, shardings, mesh)
+        return model.params(), tx.init(model.params()), dict(shardings)
+
+    def local_step(opt_state, local: dict, global_batch: dict, generator):
+        return _dense_step(model, tx, mesh, shardings, opt_state, generator,
+                           local, global_batch)
+
+    def step_fn(opt_state, batch: dict, generator=None):
+        batch = {k: torch.as_tensor(v, device=mesh_device(mesh))
+                 for k, v in batch.items()}
+        return local_step(opt_state, data_slice(batch, mesh), batch,
+                          generator)
+
+    # (opt_state, this rank's slice, the global batch, generator): the
+    # device-sampled builders and ParallelTrainer feed it directly
+    step_fn.local_step = local_step
+    return step_fn, init_fn
+
+
+def make_parallel_device_train_step(model, tx, mesh, sampler,
+                                    steps_per_call: int = 1,
+                                    rules=DEFAULT_RULES):
+    """Data parallelism with ON-DEVICE sampling: each data rank draws its
+    own slice from its own generator (`rank_generator`), so the global
+    batch is batch_size * d and no batch crosses the host.
+
+    Returns (step_fn, init_fn): init_fn as `make_parallel_train_step`'s;
+    step_fn(opt_state, generator) -> (opt_state, losses[k]), `generator`
+    this rank's (`rank_generator(seed, mesh)`), also passed to the loss."""
+    step, init_fn = make_parallel_train_step(model, tx, mesh, rules)
+
+    def step_fn(opt_state, generator: torch.Generator):
+        losses = []
+        for _ in range(steps_per_call):
+            local = sampler.sample(generator)
+            opt_state, loss, _ = step.local_step(
+                opt_state, local, gather_batch(local, mesh), generator)
+            losses.append(loss)
+        return opt_state, torch.stack(losses)
+
+    return step_fn, init_fn
+
+
+def make_parallel_sparse_train_step(model, table_specs, mesh,
+                                    rules=DEFAULT_RULES, **hyper):
+    """Distributed O(batch) sparse step: tables (and their Adam moments)
+    row-shard over 'model', batches split over 'data'; the ids of the
+    global batch are deduped on every rank, rows gathered across 'model',
+    gradients summed across 'data', and each rank writes back the rows it
+    holds. hyper: `make_sparse_train_step`'s (learning_rate, dense_tx,
+    id_cap, ...).
+
+    Returns (step_fn, init_fn): init_fn() -> (params, state, shardings);
+    step_fn(state, batch, generator=None) -> (state, loss), `batch` the
+    GLOBAL batch."""
+    shardings = {}
+    inner = {}
+
+    def init_fn():
+        shardings.update(shard_model(model, mesh, rules))
+        _check_model(model, shardings, mesh)
+        init, inner["step"] = make_sparse_train_step(
+            model, table_specs, layout=MeshRowLayout(mesh, shardings),
+            **hyper)
+        return model.params(), init(model.params()), dict(shardings)
+
+    def local_step(state: dict, local: dict, global_batch: dict, generator):
+        state, loss = inner["step"](state, local, generator,
+                                    ids_batch=global_batch)
+        return state, _reduce_data([loss], mesh)[0]
+
+    def step_fn(state: dict, batch: dict, generator=None):
+        batch = {k: torch.as_tensor(v, device=mesh_device(mesh))
+                 for k, v in batch.items()}
+        return local_step(state, data_slice(batch, mesh), batch, generator)
+
+    step_fn.local_step = local_step
+    return step_fn, init_fn
+
+
+def make_parallel_device_sparse_train_step(model, table_specs, mesh,
+                                           sampler, steps_per_call: int = 1,
+                                           rules=DEFAULT_RULES, **hyper):
+    """The sparse step fed by ON-DEVICE sampling: each data rank draws its
+    slice from its generator, the slices' ids are all_gathered over
+    'data' for the global dedup.
+
+    Returns (step_fn, init_fn): init_fn as `make_parallel_sparse_train_
+    step`'s; step_fn(state, generator) -> (state, losses[k])."""
+    step, init_fn = make_parallel_sparse_train_step(model, table_specs, mesh,
+                                                    rules=rules, **hyper)
+
+    def step_fn(state: dict, generator: torch.Generator):
+        losses = []
+        for _ in range(steps_per_call):
+            local = sampler.sample(generator)
+            state, loss = step.local_step(
+                state, local, gather_batch(local, mesh), generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return step_fn, init_fn
+
+
+def make_parallel_eval_step(model, mesh, at=(50, 100), shardings=None):
+    """Eval step with users split over 'data': each rank scores its slice
+    of the users against the whole catalog (row-sharded leaves are
+    all_gathered for it, `full_params`) and the per-user metrics are
+    all_gathered over 'data'. eval_step(user_id, pos_mask, excl_mask) ->
+    {"AUC": [B], "Recall" / "NDCG" / "Precision": [B, K]}."""
+    at = tuple(at)
+    shardings = shardings or {}
+
+    @torch.no_grad()
+    def eval_step(user_id, pos_mask, excl_mask):
+        dev = mesh_device(mesh)
+        local = data_slice({"u": torch.as_tensor(user_id, device=dev),
+                            "p": torch.as_tensor(pos_mask, device=dev),
+                            "e": torch.as_tensor(excl_mask, device=dev)},
+                           mesh)
+        with full_params(model, shardings, mesh):
+            pred = model.score({"user_id": local["u"]})
+        out = ranking_metrics(local["p"], pred, local["e"], at=at)
+        group = axis_group(mesh, DATA_AXIS)
+        return {k: col.all_gather(v, group) for k, v in out.items()}
+
+    return eval_step
+

@@ -16,6 +16,7 @@ import torch
 from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.metrics.chunked import chunked_dot_eval_metrics
 from openrec_tpu_torch.ops.bucketed_topk import bucket_score_topk
+from openrec_tpu_torch.ops.ordered_topk import topk_ordered
 from openrec_tpu_torch.ops.topk import dot_scores
 
 METHODS = ("exact", "approx", "pallas", "pallas2")
@@ -120,7 +121,7 @@ class CachedDotProductScorer:
             return bucket_score_topk(
                 rows, self._V, self._b, k, recall_target=recall_target,
                 per_bucket=2 if method == "pallas2" else 1)
-        return torch.topk(dot_scores(rows, self._V, self._b), k, dim=1)
+        return topk_ordered(dot_scores(rows, self._V, self._b), k)
 
     @torch.no_grad()
     def eval_metrics(self, params, user_ids, pos_ids, excl_ids,

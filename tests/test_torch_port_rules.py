@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "openrec_tpu")
 
 def _port_files():
     return sorted((ROOT / "openrec_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "nccl_probe.py"]
 
 
 def _imported_modules(path):
@@ -207,3 +207,80 @@ def test_itr_mlp_needs_cuda_or_explicit_cpu():
                            batch=4)
     made.update_embeddings()
     assert made.serving_tables()[0].device.type == "cpu"
+
+
+def test_distribution_entry_points_need_cuda_or_explicit_cpu():
+    """make_mesh / initialize_multihost raise without CUDA unless asked for
+    the CPU; with device="cpu" a one-rank gloo mesh serves ParallelTrainer,
+    whose model must lie on the mesh's device. Run in a fresh process, so
+    that no process group outlives the check."""
+    code = r'''
+import torch
+from openrec_tpu_torch import ParallelTrainer
+from openrec_tpu_torch.models import BPR
+from openrec_tpu_torch.parallel import initialize_multihost, make_mesh
+assert not torch.cuda.is_available()
+for fn in (make_mesh, initialize_multihost):
+    try:
+        fn()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError(f"{fn.__name__} ran without CUDA")
+mesh = make_mesh(device="cpu")
+assert mesh.device_type == "cpu" and tuple(mesh.mesh.shape) == (1, 1)
+tr = ParallelTrainer(BPR(8, 16, 4, 4, device="cpu"), mesh)
+assert tr.device == torch.device("cpu")
+print("OK")
+'''
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OK" in proc.stdout
+
+
+def _public_names(module):
+    """Names a JAX module defines (a package: re-exports) without a leading
+    underscore: its functions and classes, its submodules, and the
+    constants it holds (axis names, rules)."""
+    import types
+    package = module.__name__.count(".") == 1 or \
+        module.__file__.endswith("__init__.py")
+    out = set()
+    for name, obj in vars(module).items():
+        if name.startswith("_"):
+            continue
+        if isinstance(obj, types.ModuleType):
+            if package and obj.__name__.startswith(module.__name__ + "."):
+                out.add(name)         # e.g. parallel.sharded_checkpoint
+        elif isinstance(obj, (str, int, float, tuple)):
+            out.add(name)
+        elif callable(obj):
+            home = getattr(obj, "__module__", "") or ""
+            if home == module.__name__ or (
+                    package and home.startswith("openrec_tpu.")):
+                out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("jax_module", [
+    "openrec_tpu.parallel", "openrec_tpu.parallel.mesh",
+    "openrec_tpu.parallel.embedding", "openrec_tpu.parallel.bucketed",
+    "openrec_tpu.parallel.metrics", "openrec_tpu.parallel.train",
+    "openrec_tpu.parallel.checkpoint", "openrec_tpu.training.sparse",
+    "openrec_tpu.training.parallel_trainer"])
+def test_every_public_name_has_a_counterpart(jax_module):
+    """The port has a counterpart of every public name of the JAX
+    package's distribution layer and sparse step, under the same module
+    path with `_torch` after the package's name."""
+    import importlib
+    jmod = importlib.import_module(jax_module)
+    tmod = importlib.import_module(
+        jax_module.replace("openrec_tpu", "openrec_tpu_torch", 1))
+    names = _public_names(jmod)
+    assert names
+    missing = sorted(n for n in names if not hasattr(tmod, n))
+    assert not missing, f"{tmod.__name__} lacks {missing}"

@@ -239,3 +239,78 @@ def test_chunked_metrics_match_dense_padded_table():
     for key in want:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def _tied_params():
+    """BPR parameters whose scores tie exactly: item rows repeat in runs
+    of four and one item in five is all zeros with a zero bias, so many
+    picks share a score (all-zero rows give +0.0 or -0.0)."""
+    p = _jax_params(seed=3)
+    base = p["item_embed"][::4].copy()
+    p["item_embed"] = np.repeat(base, 4, axis=0)[:ITEMS]
+    p["item_bias"] = np.repeat(p["item_bias"][::4], 4, axis=0)[:ITEMS]
+    p["item_embed"][::5] = 0.0
+    p["item_bias"][::5] = 0.0
+    return p
+
+
+@pytest.mark.parametrize("route", ["key", "float"])
+@pytest.mark.parametrize("method", ["exact", "approx", "pallas", "pallas2",
+                                    "topk_xla", "topk_approx"])
+def test_topk_ties_ordered_as_jax(method, route, monkeypatch):
+    """Exact score ties come back lower id first, as lax.top_k orders
+    them: the ids equal JAX's one for one, not only up to ties; on both
+    routes of `topk_ordered` (the int64 key, the float path)."""
+    from openrec_tpu.ops.topk import topk_approx as j_approx, \
+        topk_xla as j_xla
+    from openrec_tpu_torch.ops import ordered_topk, topk_approx, topk_xla
+    if route == "float":
+        monkeypatch.setattr(ordered_topk, "SHORT_ROW", 0)
+    np_params = _tied_params()
+    js, jparams, ts, model = _scorers(np_params, torch.float32)
+    k = 60
+    users = np.concatenate([USER_IDS, USER_IDS[:4]])
+    if method.startswith("topk_"):
+        u = np_params["user_embed"][users]
+        u[-4:] = 0.0                   # every score ties at zero
+        args = (u, np_params["item_embed"], np_params["item_bias"], k)
+        jfn, tfn = (j_xla, topk_xla) if method == "topk_xla" \
+            else (j_approx, topk_approx)
+        want_v, want_i = jfn(*(jnp.asarray(a) for a in args[:3]), k)
+        got_v, got_i = tfn(*(torch.as_tensor(a) for a in args[:3]), k)
+    else:
+        want_v, want_i = js.topk(jparams, users, k=k, method=method,
+                                 recall_target=0.99)
+        got_v, got_i = ts.topk(model.params(), users, k=k, method=method,
+                               recall_target=0.99)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy().astype(np.int64),
+                                  np.asarray(want_i).astype(np.int64))
+
+
+@pytest.mark.parametrize("route", ["key", "float"])
+def test_topk_ordered_equals_lax_top_k(route, monkeypatch):
+    """Rows with ties inside the top k, ties across the k-th place, +0.0
+    against -0.0, NaN and +-inf: values and positions equal
+    `lax.top_k`'s bit for bit on both routes."""
+    from openrec_tpu_torch.ops import ordered_topk
+    if route == "float":
+        monkeypatch.setattr(ordered_topk, "SHORT_ROW", 0)
+    rng = np.random.default_rng(11)
+    n, k = 300, 20
+    x = rng.normal(size=(8, n)).astype(np.float32)
+    x[1] = np.round(x[1])                    # ties everywhere
+    x[2, :] = 0.0
+    x[2, ::3] = -0.0                         # zeros of both signs
+    x[3, 50] = np.nan
+    x[4, [7, 90]] = np.inf
+    x[4, 5] = -np.inf
+    top = np.sort(x[5])[-k]                  # a tie across the k-th place
+    x[5, [3, 250, 299]] = top
+    x[6] = np.float32(1.5)                   # every entry equal
+    x[7, :40] = np.repeat(x[7, :10], 4)      # runs inside the top k
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
+    got_v, got_i = ordered_topk.topk_ordered(torch.as_tensor(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                  np.asarray(want_v).view(np.int32))

@@ -278,11 +278,24 @@ def test_sparse_step_bpr_matches_jax():
 
 def test_sparse_spec_errors():
     _, _, tm = _dlrm_pair(True)
-    for mode in ("columns", "mixed", "hash", "hash4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsparse.dlrm_fused_table_spec(tm, mode=mode)
-    assert set(tsparse.dlrm_fused_table_spec(tm, mode="flat")) \
-        == {"embed_fused"}
+    b = _batch(seed=7)
+    b["sparse_features"] = torch.as_tensor(b["sparse_features"])
+    wrappers = {"columns": tsparse.Columns, "mixed": tsparse.ColumnIds,
+                "hash": tsparse.Hashed, "hash4": tsparse.Hashed}
+    for mode, cls in wrappers.items():
+        spec = tsparse.dlrm_fused_table_spec(tm, mode=mode)
+        assert set(spec) == {"embed_fused"}
+        assert isinstance(spec["embed_fused"](b), cls)
+    assert spec["embed_fused"](b).rounds == 4
+    assert spec["embed_fused"](b).lookup_unroll == 4
+    assert isinstance(tsparse.dlrm_fused_table_spec(tm, columnwise=True)
+                      ["embed_fused"](b), tsparse.Columns)
+    mixed = tsparse.dlrm_fused_table_spec(tm, mode="mixed")["embed_fused"](b)
+    assert mixed.counts == LN_EMB and mixed.offsets == (0, 50, 130)
+    flat = tsparse.dlrm_fused_table_spec(tm, mode="flat")["embed_fused"](b)
+    assert isinstance(flat, torch.Tensor) and flat.dim() == 1
+    with pytest.raises(ValueError, match="unknown dedup mode"):
+        tsparse.dlrm_fused_table_spec(tm, mode="sorted")
     _, _, sep = _dlrm_pair(False)
     init, _ = tsparse.make_sparse_train_step(
         sep, {("embed_tables", 0): lambda b: b["sparse_features"][:, 0]})
