@@ -267,7 +267,19 @@ failure raises and exits non-zero:
      ParallelTrainer on BPR at phase 5's CiteULike width and data, 200
      host-fed steps; `sharded_dot_eval_metrics` over the val id batches
      equal to the trainer's dense evaluate (rtol 1e-5, atol 1e-6); a
-     sharded checkpoint restored into a fresh trainer bit for bit.
+     sharded checkpoint restored into a fresh trainer bit for bit. (e)
+     ParallelTrainer on ItrMLP at phase 11's Netflix width on the
+     one-rank mesh: 50 host-fed steps and an `update_embeddings` under
+     deterministic algorithms, bit-identical to the flat Trainer's from
+     the same init (parameters, Adam moments, losses). Then the NCCL group
+     is taken down and (f) two ranks share the card over gloo (NCCL
+     refuses two ranks on one card; gloo runs the collectives through the
+     host), launched by `parallel.launch.spawn_local`: ItrMLP at Netflix
+     width (its batch norm over the global batch), NeuMF with dropout at
+     CiteULike width and the sampled-softmax GRU RNNRec at LastFM width
+     (device-sampled), 10 SGD steps each at two data ranks, held against
+     the flat Trainer on one rank of the same card from the same init and
+     seeds within the CPU tests' rtol 1e-5 / atol 1e-6; ms/step both ways.
 
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
@@ -3555,7 +3567,25 @@ def itr_run(torch, port, seed, dev, log_dir, run):
 
 PARALLEL = dict(shards=(2, 4), sparse_steps=10, sparse_timed=20, batch=4096,
                 lr=1e-3, trainer_steps=200, trainer_k=100, trainer_batch=1000,
-                trainer_lr=1e-3, dim=50)
+                trainer_lr=1e-3, dim=50, itr_steps=50, itr_records=100_000)
+# (f): two gloo ranks sharing the card, each model `steps` SGD steps
+# (a step the size of the gradient, so that rounding stays rounding; the
+# CPU tests' choice) at its phase's width and batch (global, split over
+# the ranks), held against one rank within the CPU tests' bars.
+# widths: None (the published ones) or smaller ones for a CPU rehearsal:
+# {"netflix": (U, I), "citeulike": (U, I), "lastfm": (U, I)}.
+DP2 = dict(steps=10, records=100_000, device="cuda", timeout=300,
+           lr={"ItrMLP": 1e-3, "NeuMF": 1e-3, "RNNRec": 0.05},
+           batch={"ItrMLP": 256, "NeuMF": 1000, "RNNRec": 256},
+           rtol=1e-5, atol=1e-6, widths=None)
+DP2_MODELS = ("ItrMLP", "NeuMF", "RNNRec")
+# the code of one rank of (f), as `parallel/launch.py` starts it
+DP2_RANK = r"""
+import json, os
+import chip_smoke
+chip_smoke.dp2_rank(int(os.environ["CHIP_SMOKE_SEED"]),
+                    json.loads(os.environ["CHIP_SMOKE_DP2"]))
+"""
 
 
 def one_rank_mesh(torch, par, dev):
@@ -3852,6 +3882,231 @@ def parallel_trainer(torch, port, par, mesh, seed, dev, run):
     return out
 
 
+def sgd(lr):
+    """Plain SGD as a `GradientTransformation` (params <- params - lr * g)."""
+    from openrec_tpu_torch.training.optim import GradientTransformation
+    return GradientTransformation(
+        lambda params, device=None: {},
+        lambda g, s, p=None: ({k: -lr * v for k, v in g.items()}, s))
+
+
+def parallel_itr(torch, port, par, mesh, seed, dev, run):
+    """(e) ParallelTrainer on ItrMLP at phase 11's Netflix width on the
+    one-rank mesh (replicated: its `post_step` marks rows by global ids):
+    `itr_steps` host-fed steps of the chronological stream under
+    deterministic algorithms, then `update_embeddings`, bit-identical to
+    the flat Trainer's from the same init (lazy_adam: parameters,
+    moments, losses); the wall ms/step of each."""
+    from openrec_tpu_torch.convert import flatten_tree
+    data = netflix_data(seed, dict(ITR, records=run["itr_records"]))
+    U, I, n = data["total_users"], data["total_items"], run["itr_steps"]
+    batches = explicit_batches(data["train_data"], 0, n, ITR["batch"])
+
+    def model():
+        return itr_model(port, U, I, dev,
+                         torch.Generator(device=dev).manual_seed(seed))
+
+    trainers = {"flat": port.Trainer(model(), lr=ITR["lr"], seed=seed,
+                                     device=dev),
+                "world1": port.ParallelTrainer(model(), mesh, lr=ITR["lr"],
+                                               seed=seed, rules=())}
+    ms, losses = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for what, tr in trainers.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses[what] = torch.stack([tr.train_step(b)[0]
+                                        for b in batches])
+            torch.cuda.synchronize()
+            ms[what] = (time.perf_counter() - t) * 1e3 / n
+            tr.model.update_embeddings()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = ({**flatten_tree(tr.params), **flatten_tree(tr.opt_state)}
+            for tr in trainers.values())
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a) \
+            or not torch.equal(losses["flat"], losses["world1"]):
+        fail("parallel (e): ItrMLP's world-1 ParallelTrainer differs from "
+             "the flat Trainer")
+    out = {"users": U, "items": I, "dim": ITR["dim"], "steps": n,
+           "batch": ITR["batch"], "bit_identical": True, "leaves": len(a),
+           "ms_per_step_flat": ms["flat"], "ms_per_step_world1":
+           ms["world1"], "loss_first": float(losses["flat"][0]),
+           "loss_last": float(losses["flat"][-1])}
+    print(f"parallel (e) ParallelTrainer ItrMLP netflix ({U:,} x {I:,}, D "
+          f"{ITR['dim']}) at world 1: {n} deterministic host-fed steps and "
+          f"an update bit-identical to the flat Trainer ({len(a)} leaves, "
+          f"losses); wall {ms['flat']:.3f} ms/step flat, "
+          f"{ms['world1']:.3f} ms/step world 1", flush=True)
+    return out
+
+
+def dp2_setup(torch, port, name, seed, dev, run):
+    """(make, global batches or None, device sampler or None, global
+    batch) of one (f) model at its phase's width: `make()` builds it from
+    a generator seeded `seed`, the same on every rank."""
+    from types import SimpleNamespace
+
+    from openrec_tpu_torch.data import (DeviceTemporalSampler,
+                                        InteractionStore, loaders)
+    widths = run["widths"] or {}
+    B, n = run["batch"][name], run["steps"]
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed)
+    if name == "ItrMLP":
+        U, I = widths.get("netflix", (None, None))
+        data = netflix_data(seed, dict(ITR, records=run["records"], users=U,
+                                       items=I))
+        U, I = data["total_users"], data["total_items"]
+        return (lambda: itr_model(port, U, I, dev, gen()),
+                explicit_batches(data["train_data"], 0, n, B), None, B)
+    if name == "NeuMF":
+        U, I = widths.get("citeulike", (CITEULIKE["users"],
+                                        CITEULIKE["items"]))
+        rng = np.random.default_rng(seed + 41)
+        batches = [{"user_id": rng.integers(0, U, B).astype(np.int32),
+                    "item_id": rng.integers(0, I, B).astype(np.int32),
+                    "label": (rng.random(B) < LEGACY["pos_ratio"]).astype(
+                        np.float32)} for _ in range(n)]
+        return (lambda: legacy_model(port, "NeuMF", U, I, None, dev, gen()),
+                batches, None, B)
+    if "lastfm" in widths:
+        U, I = widths["lastfm"]
+        loaders = SimpleNamespace(LASTFM={"total_users": U,
+                                          "total_items": I})
+    data = lastfm_data(loaders, seed)
+    I = data["total_items"]
+    store = InteractionStore(data["train_data"], data["total_users"], I,
+                             sortby="ts")
+    L = SEQUENCE_FEED["RNNRec-gru"][1]
+    sampler = DeviceTemporalSampler(store, B // 2, L, device=dev)
+    return (lambda: sequence_model(port, "RNNRec-gru", I, dev, gen()),
+            None, sampler, B)
+
+
+def dp2_case(torch, port, par, mesh, name, seed, dev, run, rank):
+    """One (f) model: `steps` steps of a ParallelTrainer at two data ranks
+    (host-fed: every rank passes the global batch; device-sampled: each
+    rank draws its half from fold_in(seed, rank), the loss from the
+    shared generator), and on rank 0 the flat Trainer on the same global
+    batches from the same init and seed. Wall ms/step of each."""
+    make, batches, sampler, B = dp2_setup(torch, port, name, seed, dev, run)
+    n, lr = run["steps"], run["lr"][name]
+
+    def timed(fn):
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3 / n
+
+    pt = port.ParallelTrainer(make(), mesh, optimizer=sgd(lr), seed=seed,
+                              rules=())
+    if batches is not None:
+        losses, ms = timed(lambda: torch.stack(
+            [pt.train_step(b)[0] for b in batches]))
+    else:
+        losses, ms = timed(lambda: pt.train_steps_device(sampler, n))
+    out = {"steps": n, "global_batch": B, "lr": lr,
+           "feed": "host-fed" if batches is not None else
+           "device-sampled (DeviceTemporalSampler, half a rank)",
+           "ms_per_step_gloo_d2": ms}
+    if rank != 0:
+        return out
+    ref = port.Trainer(make(), optimizer=sgd(lr), seed=seed, device=dev)
+    if batches is None:
+        gens = [torch.Generator(device=dev).manual_seed(par.fold_in(seed, r))
+                for r in range(2)]
+        batches = []
+        for _ in range(n):
+            parts = [sampler.sample(g) for g in gens]
+            batches.append({k: torch.cat([p[k] for p in parts])
+                            for k in parts[0]})
+    want, ms1 = timed(lambda: torch.stack([ref.train_step(b)[0]
+                                           for b in batches]))
+    init = {k: v.detach() for k, v in make().params().items()}
+    got_p, want_p = pt.params, ref.params
+    outside, worst, moved = 0, 0.0, 0.0
+    for k, w in want_p.items():
+        g, w = got_p[k].detach(), w.detach()
+        diff = (g - w).abs()
+        outside += int((diff > run["atol"] + run["rtol"] * w.abs()).sum())
+        worst = max(worst, float(diff.max()))
+        moved = max(moved, float((w - init[k]).abs().max()))
+    loss_rel = float(((losses - want).abs() / want.abs()).max())
+    out.update({"ms_per_step_one_rank": ms1, "loss_first": float(want[0]),
+                "loss_last": float(want[-1]), "loss_max_rel_diff": loss_rel,
+                "params_max_abs_diff": worst, "params_outside": outside,
+                "params_max_moved": moved,
+                "ok": outside == 0 and loss_rel <= run["rtol"]
+                and bool(torch.isfinite(want).all())})
+    return out
+
+
+def dp2_rank(seed, run):
+    """One rank of (f): joins the two-rank gloo job that
+    `parallel.launch.spawn_local` started (CUDA tensors over the host),
+    runs every DP2_MODELS case and, on rank 0, prints their results as
+    one `DP2 {...}` line."""
+    import torch
+    import torch.distributed as dist
+
+    import openrec_tpu_torch as port
+    from openrec_tpu_torch import parallel as par
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = par.make_mesh(2, 1, device=run["device"], backend="gloo")
+    dev = par.mesh.mesh_device(mesh)
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(dev)}
+    for name in DP2_MODELS:
+        out[name] = dp2_case(torch, port, par, mesh, name, seed, dev, run,
+                             rank)
+    if rank == 0:
+        print("DP2 " + json.dumps(out), flush=True)
+
+
+def parallel_gloo(torch, seed, run=DP2):
+    """(f) DP2_MODELS at two data ranks sharing the card over gloo (NCCL
+    refuses two ranks on one card), launched as `parallel/launch.py`
+    launches ranks; each held against one rank on the same card from the
+    same init and seed, within rtol / atol. A rank that fails, a result
+    outside the bars or a launch past its timeout fails the phase."""
+    from openrec_tpu_torch.parallel.launch import spawn_local
+    t = time.perf_counter()
+    try:
+        outs = spawn_local(DP2_RANK, 2, timeout=run["timeout"], env={
+            "CHIP_SMOKE_SEED": str(seed), "CHIP_SMOKE_DP2": json.dumps(run)})
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"parallel (f): the two gloo ranks failed: {str(e)[-3000:]}")
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("DP2 ")]
+    if not lines:
+        fail(f"parallel (f): rank 0 printed no result: {outs[0][-3000:]}")
+    out = json.loads(lines[-1][4:])
+    out["launch_s"] = time.perf_counter() - t
+    for name in DP2_MODELS:
+        r = out[name]
+        print(f"parallel (f) {name} at 2 data ranks on one card over gloo "
+              f"(collectives through the host, not NCCL), {r['feed']}, "
+              f"global batch {r['global_batch']}, {r['steps']} SGD steps: "
+              f"{r['ms_per_step_gloo_d2']:.2f} ms/step at d 2, "
+              f"{r['ms_per_step_one_rank']:.2f} ms/step one rank; loss "
+              f"{r['loss_first']:.6g} -> {r['loss_last']:.6g}, max rel diff "
+              f"{r['loss_max_rel_diff']:.3g}; params max |diff| "
+              f"{r['params_max_abs_diff']:.3g} ({r['params_outside']} "
+              f"outside rtol {run['rtol']:g} / atol {run['atol']:g}), moved "
+              f"up to {r['params_max_moved']:.3g}", flush=True)
+        if not r["ok"]:
+            fail(f"parallel (f): {name} at two data ranks differs from one "
+                 f"rank: {json.dumps(r)}")
+    return out
+
+
 def phase_parallel(torch, port, seed, dev, run=PARALLEL):
     """Phase 12: the distribution layer on the card (its docstring at the
     top of this file)."""
@@ -3873,7 +4128,15 @@ def phase_parallel(torch, port, seed, dev, run=PARALLEL):
     t = time.perf_counter()
     out["trainer"] = parallel_trainer(torch, port, par, mesh, seed, dev, run)
     out["trainer_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["itr_world1"] = parallel_itr(torch, port, par, mesh, seed, dev, run)
+    out["itr_world1_s"] = time.perf_counter() - t
     dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["gloo_d2"] = parallel_gloo(torch, seed)
+    out["gloo_d2_s"] = time.perf_counter() - t
     return out
 
 
@@ -4503,6 +4766,10 @@ def main(argv=None):
                 "steps", "steps_per_s", "device_ms_per_step",
                 "device_ops_per_step", "idle_share", "sharded",
                 "checkpoint_bitwise")},
+            "itr_world1": parallel["itr_world1"],
+            "gloo_d2": parallel["gloo_d2"],
+            "seconds": {m: parallel[m + "_s"] for m in (
+                "retrieval", "sparse", "trainer", "itr_world1", "gloo_d2")},
             "phase_s": parallel["phase_s"]}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))

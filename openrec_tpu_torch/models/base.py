@@ -59,9 +59,17 @@ class Recommender(nn.Module):
     # How the loss reduces over the batch's examples, for `batch_sums`:
     # "mean" (a batch mean plus, where aux has "l2_loss", l2_weight times
     # an L2 summed over the batch's looked-up rows), "sum" (every term a
-    # sum over the examples) or None (neither, e.g. a batch norm over the
-    # batch: the loss does not split over data ranks).
+    # sum over the examples) or None (not declared: the loss does not
+    # split over data ranks). A term that reads the whole batch, such as
+    # a batch norm's statistics, still splits: inside a data-parallel
+    # step it reads the global batch (`modules/global_batch.py`), so each
+    # slice's part is its examples' terms and the parts add up.
     loss_reduction: str | None = None
+
+    # The loss reads its embedding tables through `table` / `lookup`, so a
+    # row-sharded table reaches it as a view (`parallel/train.py`); False:
+    # it reads them whole, and they may not shard.
+    table_views: bool = True
 
     def batch_sums(self, total: torch.Tensor, aux: dict) -> dict:
         """The parts of `total` (key "total") and of each aux term that

@@ -7,7 +7,12 @@ layer, relu out) that transform looked-up rows, and the item bias.
 `update_embeddings()`, which `Trainer.train(update_interval=)` calls
 every `update_interval` steps, writes MLP(table) into the marked rows and
 clears the marks. The MLP runs over the WHOLE table there, so its batch
-norm takes the statistics of every row, visited or not.
+norm takes the statistics of every row, visited or not. In a
+data-parallel step the loss's batch norm takes the GLOBAL batch's
+statistics (`modules/global_batch.py`), so the loss splits over data
+ranks as a sum; `post_step` marks the global batch's rows and
+`update_embeddings` reads the replicated tables, so every rank does the
+same.
 
 The tables and flags stay `nn.Parameter`s under the JAX tree's names, so
 that `convert`, npz checkpoints and `load_params` carry them. They are
@@ -47,6 +52,11 @@ def _table(pretrained, num, dim, generator, device):
 
 
 class ItrMLP(Recommender):
+    # a sum over the records; the batch norm's statistics are the global
+    # batch's in a data-parallel step, so the slices' sums add up to it
+    loss_reduction = "sum"
+    table_views = False
+
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  user_dims: Sequence[int] = (),
                  item_dims: Sequence[int] = (),

@@ -50,6 +50,7 @@ from openrec_tpu_torch.modules.rnn import GRU, LSTM
 
 class RNNRec(Recommender):
     loss_reduction = "mean"
+    table_views = False
 
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int, num_units: int, cell_type: str = "gru",
@@ -106,6 +107,7 @@ class RNNRec(Recommender):
 
 class VanillaYouTubeRec(Recommender):
     loss_reduction = "mean"
+    table_views = False
 
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int,

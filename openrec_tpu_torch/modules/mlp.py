@@ -4,7 +4,9 @@ Counterpart of `openrec_tpu/modules/mlp.py`: glorot-uniform kernels and
 zero biases (keras Dense defaults), per-layer activation with a separate
 output activation, and the tf1 MultiLayerFC extras: dropout after every
 hidden layer in training, and batch norm over the batch axis with the
-BIASED variance (`jnp.var`), epsilon 1e-5.
+BIASED variance (`jnp.var`), epsilon 1e-5. Inside a data-parallel
+step both take the GLOBAL batch (`modules/global_batch.py`): the batch
+norm its statistics, the dropout its mask.
 
 The MLP is a `ModuleList` of its layers, so the parameters of layer i
 are `{i}.w`, `{i}.b`, `{i}.bn_scale` and `{i}.bn_bias` (`out_bias=False`
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openrec_tpu_torch.device import resolve_device
+from openrec_tpu_torch.modules import global_batch
 
 _ACTIVATIONS = {
     None: lambda x: x,
@@ -100,8 +103,7 @@ class MLP(nn.ModuleList):
             if hasattr(layer, "b"):
                 x = x + layer.b.to(x.dtype)
             if self.batch_norm:
-                mean = torch.mean(x, dim=0, keepdim=True)
-                var = torch.var(x, dim=0, keepdim=True, correction=0)
+                mean, var = global_batch.batch_moments(x)
                 x = (x - mean) * torch.rsqrt(var + 1e-5)
                 x = x * layer.bn_scale.to(x.dtype) \
                     + layer.bn_bias.to(x.dtype)
@@ -112,8 +114,7 @@ class MLP(nn.ModuleList):
                 if gen is None:
                     raise ValueError("dropout in training needs a generator")
                 keep = 1.0 - self.dropout_rate
-                mask = torch.rand(x.shape, generator=gen,
-                                  device=x.device) < keep
+                mask = global_batch.rand(x.shape, gen, x.device) < keep
                 x = torch.where(mask, x / keep, 0.0)
         return x
 

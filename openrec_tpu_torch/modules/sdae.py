@@ -6,8 +6,9 @@ dims[-2::-1] + [in_dim] (mirrored), input corruption by dropout, and the
 reconstruction term l2_reconst * ||dec(enc(x~)) - x||^2. Parameters are
 `encoder/{i}/w|b` and `decoder/{i}/w|b`, the JAX tree's paths. The
 corruption mask draws from the generator given to `reconstruction_loss`
-(the same keep rate and 1/keep scaling as JAX's, not its bits); without
-one nothing is corrupted, as there.
+(the same keep rate and 1/keep scaling as JAX's, not its bits), over the
+global batch inside a data-parallel step (`modules/global_batch.py`);
+without one nothing is corrupted, as there.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from openrec_tpu_torch.modules import global_batch
 from openrec_tpu_torch.modules.mlp import MLP
 
 
@@ -46,8 +48,7 @@ class SDAE(nn.Module):
         corrupted = x
         if self.dropout > 0.0 and generator is not None:
             keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = global_batch.rand(x.shape, generator, x.device) < keep
             corrupted = torch.where(mask, x / keep, 0.0)
         code = self.encode(corrupted)
         recon = self.decoder(code)

@@ -1,10 +1,11 @@
 """ctypes bindings for the native host-sampling library.
 
-Counterpart of `openrec_tpu/native/__init__.py`, for the entry points the
-port's `PairwiseSampler` and `StratifiedPointwiseSampler` call:
-`build_hash_table`, `shuffle_pairs`, `pairwise_negatives_seq`,
-`pairwise_batch_hash` and `stratified_pointwise_batch_hash`, plus
-`available()`.
+Counterpart of `openrec_tpu/native/__init__.py`: the entry points the
+port's `PairwiseSampler` and `StratifiedPointwiseSampler` call
+(`build_hash_table`, `shuffle_pairs`, `pairwise_negatives_seq`,
+`pairwise_batch_hash` and `stratified_pointwise_batch_hash`), the
+binary-search ones over the sorted u*I+i keys (`sample_negatives`,
+`is_positive`, `pairwise_batch`), and `available()`.
 The library is the port's own `sampler.cpp`, built with g++ at first use
 (`-O3 -shared -fPIC -std=c++17`, `-march=native` with a retry without
 it) into `openrec_tpu_torch/build/` under a name keyed by a hash of the
@@ -77,7 +78,15 @@ def load():
 
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32, i64, u64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+        lib.is_positive_batch.argtypes = [i64p, i64, i64p, i64p, i64, i64,
+                                          u8p]
+        lib.sample_negatives.argtypes = [i64p, i64, i64p, i64, i64, u64,
+                                         i32, i32p]
+        lib.pairwise_join_and_negatives.argtypes = [
+            i64p, i64, i32p, i32p, i64p, i64, i64, u64, i32, i32p, i32p,
+            i32p]
         lib.build_hash_table.argtypes = [i64p, i64, i64p, i64]
         lib.pairwise_join_and_negatives_hash_mt.argtypes = [
             i64p, i64, i32p, i32p, i64p, i64, i64, u64, i32, i32,
@@ -124,6 +133,52 @@ def build_hash_table(pos_keys: np.ndarray) -> np.ndarray:
     lib.build_hash_table(np.ascontiguousarray(pos_keys, np.int64), n,
                          table, capacity)
     return table
+
+
+def sample_negatives(pos_keys: np.ndarray, users: np.ndarray,
+                     total_items: int, seed: int,
+                     max_rounds: int = 64) -> np.ndarray:
+    """One uniform item per user, redrawn (up to max_rounds times) while
+    it is a positive of the sorted u*I+i `pos_keys`; int32."""
+    lib = _lib_or_raise()
+    pos_keys = np.ascontiguousarray(pos_keys, dtype=np.int64)
+    users = np.ascontiguousarray(users, dtype=np.int64)
+    out = np.empty(len(users), dtype=np.int32)
+    lib.sample_negatives(pos_keys, len(pos_keys), users, len(users),
+                         total_items, seed & (2 ** 64 - 1), max_rounds,
+                         out)
+    return out
+
+
+def is_positive(pos_keys: np.ndarray, users: np.ndarray,
+                items: np.ndarray, total_items: int) -> np.ndarray:
+    """bool [n]: is (users[i], items[i]) a positive of `pos_keys`."""
+    lib = _lib_or_raise()
+    pos_keys = np.ascontiguousarray(pos_keys, dtype=np.int64)
+    users = np.ascontiguousarray(users, dtype=np.int64)
+    items = np.ascontiguousarray(items, dtype=np.int64)
+    out = np.empty(len(users), dtype=np.uint8)
+    lib.is_positive_batch(pos_keys, len(pos_keys), users, items,
+                          len(users), total_items, out)
+    return out.astype(bool)
+
+
+def pairwise_batch(pos_keys: np.ndarray, rec_users: np.ndarray,
+                   rec_items: np.ndarray, record_idx: np.ndarray,
+                   total_items: int, seed: int, max_rounds: int = 64):
+    """(users, positives, negatives) int32 of the records `record_idx`,
+    one negative each as `sample_negatives` draws it, in one stream."""
+    lib = _lib_or_raise()
+    pos_keys = np.ascontiguousarray(pos_keys, dtype=np.int64)
+    b = len(record_idx)
+    record_idx = np.ascontiguousarray(record_idx, dtype=np.int64)
+    out_u = np.empty(b, dtype=np.int32)
+    out_p = np.empty(b, dtype=np.int32)
+    out_n = np.empty(b, dtype=np.int32)
+    lib.pairwise_join_and_negatives(
+        pos_keys, len(pos_keys), rec_users, rec_items, record_idx, b,
+        total_items, seed & (2 ** 64 - 1), max_rounds, out_u, out_p, out_n)
+    return out_u, out_p, out_n
 
 
 def shuffle_pairs(users: np.ndarray, items: np.ndarray, seed: int):

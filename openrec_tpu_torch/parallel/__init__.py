@@ -11,7 +11,7 @@ from openrec_tpu_torch.parallel.train import (
     data_slice, fold_in, full_params, make_parallel_device_sparse_train_step,
     make_parallel_device_train_step, make_parallel_eval_step,
     make_parallel_sparse_train_step, make_parallel_train_step,
-    rank_generator)
+    rank_generator, shared_generator)
 from openrec_tpu_torch.parallel.embedding import (
     ShardedTable, merge_topk, pad_rows, sharded_lookup, sharded_pallas_topk,
     sharded_scores, sharded_topk)

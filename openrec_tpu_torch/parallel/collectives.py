@@ -13,6 +13,9 @@ cotangent): the summed cotangents are divided by the group's size.
                         rank's chunk), / group size
   all_to_all         -> backward: all_to_all (no division: each rank's
                         result is its own)
+  data_sum           -> backward: all_reduce (no division: each rank's
+                        loss is its own part of the global batch's, so
+                        the cotangents of a global statistic add up)
 
 A group of one rank is the identity both ways, so a 1 x 1 mesh computes
 bit for bit what one device does. gloo (CPU) and NCCL (CUDA) both run
@@ -42,6 +45,14 @@ class _AllReduce(torch.autograd.Function):
         ct = ct.contiguous().clone()
         dist.all_reduce(ct, group=ctx.group)
         return ct / group_size(ctx.group), None
+
+
+class _DataSum(_AllReduce):
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous().clone()
+        dist.all_reduce(ct, group=ctx.group)
+        return ct, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -83,6 +94,16 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _AllReduce.apply(x, group)
+
+
+def data_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the data group of a statistic of the global batch (a
+    batch norm's sums), differentiable: the backward sums every rank's
+    cotangent, since each rank's loss is its own slice's part of the
+    global batch's. At one rank the identity, with no collective."""
+    if group_size(group) == 1:
+        return x
+    return _DataSum.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -13,7 +13,8 @@ a mesh of devices; here every rank is a process of its own
 A JAX `NamedSharding` becomes a placement rule, `Sharding(mesh, spec)`:
 `spec` names, per dimension of a leaf, the mesh dim it splits over (or
 None), and `block(shape)` says which block of the leaf this rank holds.
-NCCL joins CUDA ranks (the default); gloo joins CPU ranks, on request.
+NCCL joins CUDA ranks (the default); gloo joins CPU ranks, and CUDA
+ranks on request (`backend="gloo"`).
 """
 
 from __future__ import annotations
@@ -41,14 +42,17 @@ def _free_port() -> int:
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
-                         process_id: Optional[int] = None, device=None):
+                         process_id: Optional[int] = None, device=None,
+                         backend: Optional[str] = None):
     """Join the job's process group; returns (rank, world size).
 
     Without arguments the launcher's environment names them (`torchrun`
     sets RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); with none of that a
-    process is a job of one, on a free localhost port. CUDA ranks use NCCL
-    and take the card LOCAL_RANK (default rank mod the cards); device="cpu"
-    uses gloo. Raises without CUDA unless device="cpu"."""
+    process is a job of one, on a free localhost port. CUDA ranks take the
+    card LOCAL_RANK (default rank) mod the cards. `backend` defaults to
+    NCCL on CUDA and gloo on the CPU; backend="gloo" lets CUDA ranks join
+    over the host (several ranks on one card, which NCCL refuses). Raises
+    without CUDA unless device="cpu"."""
     dev = resolve_device(device)
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -67,22 +71,24 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
             raise RuntimeError("no coordinator address: pass one or launch "
                                "with torchrun")
     if dev.type == "cuda":
-        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
-        torch.cuda.set_device(local)
+        local = int(env.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo",
+        backend,
         init_method=f"tcp://{coordinator_address}", rank=rank,
         world_size=world)
     return rank, world
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
-              device=None) -> DeviceMesh:
+              device=None, backend: Optional[str] = None) -> DeviceMesh:
     """A ('data', 'model') DeviceMesh over the job's ranks (joining the job
-    first, `initialize_multihost`); 'data' absorbs the remainder. Raises
-    without CUDA unless device="cpu"."""
+    first, `initialize_multihost`, over `backend`); 'data' absorbs the
+    remainder. Raises without CUDA unless device="cpu"."""
     dev = resolve_device(device)
-    _, world = initialize_multihost(device=dev)
+    _, world = initialize_multihost(device=dev, backend=backend)
     if data is None:
         if world % model:
             raise ValueError(f"{world} ranks do not split over model={model}")

@@ -2,20 +2,24 @@
 
 Counterpart of `openrec_tpu/parallel/train.py`. The JAX step is one GSPMD
 program over the GLOBAL batch; here every rank runs the same step on its
-data slice of it:
+data slice of it, and computes what that program computes:
 
   - every leaf a rule shards over 'model' (`DEFAULT_RULES`: the tables)
     holds this rank's rows (`mesh.shard_model`), and the model's loss
     reaches it through a `ShardedTable` view (`model.loss(batch,
     tables=...)`); dense towers stay whole on every rank;
+  - the loss runs inside a data-parallel context (`modules/global_batch`,
+    entered at more than one data rank): a random draw inside it (a
+    dropout or corruption mask) is this slice's rows of the draw over the
+    global batch, and a batch norm takes the global batch's mean and
+    variance through a differentiable sum over 'data';
   - the loss of the slice is scaled so that its gradients, summed over
     'data', are the global batch's (`data_parallel_objective`: the terms
     the model sums over its examples by 1, its batch means and its terms
     independent of the batch by B_local / B, as `Recommender.batch_sums`
-    splits them; a model whose loss does not split so, such as a batch
-    norm over the batch, is refused at more than one data rank); the
-    gradients are summed over 'data' in one all_reduce, and
-    `grad_transform` sees the global batch;
+    splits them; a model that declares no `loss_reduction` is refused at
+    more than one data rank); the gradients are summed over 'data' in one
+    all_reduce, and `grad_transform` sees the global batch;
   - optimizer moments are made from the local leaves, so they follow
     their parameter's rows;
   - the sparse step dedups the ids of the GLOBAL batch, so that each row
@@ -23,13 +27,19 @@ data slice of it:
     program; each rank writes back only the rows it holds
     (`MeshRowLayout`);
   - the device-sampled builders draw each data rank's slice from its own
-    generator, seeded by `fold_in(seed, data rank)`.
+    generator, seeded by `fold_in(seed, data rank)` (JAX's r_sample
+    folded with the shard index), and pass the loss a generator that
+    every rank seeds alike (`shared_generator`, JAX's r_loss), so that
+    the loss's draws, the sampled softmax's candidates included, are
+    those of one program over the global batch.
 
 Every builder returns the loss of the global batch, the same on every
 rank. A model whose `post_step` does anything may not shard its tables
-(it would index them by global ids).
+(it would index them by global ids), nor may one whose loss reads them
+whole (`Recommender.table_views`: the sequence models, ItrMLP); a
+`post_step` reads the global batch and the replicated tables, so it does
+the same on every rank.
 """
-
 from __future__ import annotations
 
 from contextlib import contextmanager
@@ -38,6 +48,7 @@ import torch
 
 from openrec_tpu_torch.metrics.ranking import ranking_metrics
 from openrec_tpu_torch.models.base import Recommender
+from openrec_tpu_torch.modules.global_batch import data_parallel
 from openrec_tpu_torch.parallel import collectives as col
 from openrec_tpu_torch.parallel.embedding import ShardedTable
 from openrec_tpu_torch.parallel.mesh import (DATA_AXIS, DEFAULT_RULES,
@@ -65,6 +76,30 @@ def rank_generator(seed: int, mesh, device=None) -> torch.Generator:
     dev = mesh_device(mesh) if device is None else torch.device(device)
     return torch.Generator(device=dev).manual_seed(
         fold_in(seed, axis_index(mesh, DATA_AXIS)))
+
+
+def shared_generator(seed: int, mesh, device=None) -> torch.Generator:
+    """The generator a data-parallel loss draws from (JAX's r_loss):
+    seeded `seed` on the mesh's device, alike on every rank."""
+    dev = mesh_device(mesh) if device is None else torch.device(device)
+    return torch.Generator(device=dev).manual_seed(int(seed))
+
+
+@contextmanager
+def global_batch_of(mesh, batch: dict):
+    """Inside: the loss's draws and batch norms take the global `batch`
+    (`modules/global_batch.py`), of which this rank holds its data slice.
+    At one data rank nothing changes."""
+    d = axis_size(mesh, DATA_AXIS)
+    if d == 1:
+        yield
+        return
+    group = axis_group(mesh, DATA_AXIS)
+    rows = next(iter(batch.values())).shape[0]
+    with data_parallel(
+            d, axis_index(mesh, DATA_AXIS), rows,
+            lambda x: col.data_sum(x, group)):
+        yield
 
 
 def data_slice(batch: dict, mesh) -> dict:
@@ -114,6 +149,10 @@ def _sharded_names(shardings: dict) -> list:
 
 
 def _check_model(model, shardings: dict, mesh):
+    if _sharded_names(shardings) and not model.table_views:
+        raise NotImplementedError(
+            f"{type(model).__name__}'s loss reads its tables whole; "
+            "replicate them with rules=()")
     if _sharded_names(shardings) and \
             type(model).post_step is not Recommender.post_step:
         raise NotImplementedError(
@@ -122,8 +161,8 @@ def _check_model(model, shardings: dict, mesh):
     if axis_size(mesh, DATA_AXIS) > 1 and model.loss_reduction is None \
             and type(model).batch_sums is Recommender.batch_sums:
         raise NotImplementedError(
-            f"{type(model).__name__}'s loss does not split over data ranks "
-            "(no loss_reduction); use a mesh of one data rank")
+            f"{type(model).__name__} declares no loss_reduction, so its loss "
+            "does not split over data ranks; use a mesh of one data rank")
 
 
 @contextmanager
@@ -191,7 +230,9 @@ def _dense_step(model, tx, mesh, shardings, opt_state, generator, local,
     names = list(params)
     views = {n: ShardedTable(params[n], mesh)
              for n in _sharded_names(shardings)}
-    total, aux = model.loss(local, tables=views or None, generator=generator)
+    with global_batch_of(mesh, global_batch):
+        total, aux = model.loss(local, tables=views or None,
+                                generator=generator)
     # (before the update: a term such as GMF's MLP L2 reads the weights)
     sums = {} if frac == 1.0 else model.batch_sums(total, aux)
     objective = _slice_part(total, sums.get("total"), frac)
@@ -217,7 +258,8 @@ def make_parallel_train_step(model, tx, mesh, rules=DEFAULT_RULES):
     parameters in place (`shard_model`) and makes tx's state from them.
     step_fn(opt_state, batch, generator=None) -> (opt_state, loss, aux):
     `batch` is the GLOBAL batch (every rank passes the same); this rank
-    steps on its data slice. loss and aux are the global batch's."""
+    steps on its data slice. loss and aux are the global batch's.
+    `generator` feeds the loss's draws; every rank seeds it alike."""
     shardings = {}
 
     def init_fn():
@@ -235,8 +277,9 @@ def make_parallel_train_step(model, tx, mesh, rules=DEFAULT_RULES):
         return local_step(opt_state, data_slice(batch, mesh), batch,
                           generator)
 
-    # (opt_state, this rank's slice, the global batch, generator): the
-    # device-sampled builders and ParallelTrainer feed it directly
+    # (opt_state, this rank's slice, the global batch, the loss's shared
+    # generator): make_parallel_device_train_step and ParallelTrainer feed
+    # it directly
     step_fn.local_step = local_step
     return step_fn, init_fn
 
@@ -249,16 +292,20 @@ def make_parallel_device_train_step(model, tx, mesh, sampler,
     batch is batch_size * d and no batch crosses the host.
 
     Returns (step_fn, init_fn): init_fn as `make_parallel_train_step`'s;
-    step_fn(opt_state, generator) -> (opt_state, losses[k]), `generator`
-    this rank's (`rank_generator(seed, mesh)`), also passed to the loss."""
+    step_fn(opt_state, generator, loss_generator=None) -> (opt_state,
+    losses[k]): `generator` this rank's (`rank_generator(seed, mesh)`),
+    for sampling only; `loss_generator` the loss's, seeded alike on every
+    rank (`shared_generator(seed, mesh)`). Without it the loss draws
+    nothing, as the host-fed step's without a generator."""
     step, init_fn = make_parallel_train_step(model, tx, mesh, rules)
 
-    def step_fn(opt_state, generator: torch.Generator):
+    def step_fn(opt_state, generator: torch.Generator,
+                loss_generator: torch.Generator | None = None):
         losses = []
         for _ in range(steps_per_call):
             local = sampler.sample(generator)
             opt_state, loss, _ = step.local_step(
-                opt_state, local, gather_batch(local, mesh), generator)
+                opt_state, local, gather_batch(local, mesh), loss_generator)
             losses.append(loss)
         return opt_state, torch.stack(losses)
 
@@ -289,8 +336,9 @@ def make_parallel_sparse_train_step(model, table_specs, mesh,
         return model.params(), init(model.params()), dict(shardings)
 
     def local_step(state: dict, local: dict, global_batch: dict, generator):
-        state, loss = inner["step"](state, local, generator,
-                                    ids_batch=global_batch)
+        with global_batch_of(mesh, global_batch):
+            state, loss = inner["step"](state, local, generator,
+                                        ids_batch=global_batch)
         return state, _reduce_data([loss], mesh)[0]
 
     def step_fn(state: dict, batch: dict, generator=None):
@@ -310,16 +358,18 @@ def make_parallel_device_sparse_train_step(model, table_specs, mesh,
     'data' for the global dedup.
 
     Returns (step_fn, init_fn): init_fn as `make_parallel_sparse_train_
-    step`'s; step_fn(state, generator) -> (state, losses[k])."""
+    step`'s; step_fn(state, generator, loss_generator=None) -> (state,
+    losses[k]), the generators as `make_parallel_device_train_step`'s."""
     step, init_fn = make_parallel_sparse_train_step(model, table_specs, mesh,
                                                     rules=rules, **hyper)
 
-    def step_fn(state: dict, generator: torch.Generator):
+    def step_fn(state: dict, generator: torch.Generator,
+                loss_generator: torch.Generator | None = None):
         losses = []
         for _ in range(steps_per_call):
             local = sampler.sample(generator)
             state, loss = step.local_step(
-                state, local, gather_batch(local, mesh), generator)
+                state, local, gather_batch(local, mesh), loss_generator)
             losses.append(loss)
         return state, torch.stack(losses)
 

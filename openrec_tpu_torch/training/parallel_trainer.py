@@ -9,12 +9,19 @@ model holds its rows; checkpoints write per-rank pieces with a manifest
 package's included. The iteration loop, interval eval / save, K-step
 calls and on-device sampling are the Trainer's.
 
+The loss draws from `self.generator`, seeded `seed` alike on every rank
+(JAX's r_loss): inside the step a draw takes the global batch's shape and
+each rank keeps its rows (`modules/global_batch.py`), so the masks and
+sampled candidates are those of one program over the global batch.
+`train_steps_device` draws each data rank's slice from
+`self.rank_generator`, seeded `fold_in(seed, data rank)`
+(`rank_generator`, JAX's r_sample folded with the shard index), which
+only samples.
+
 Differences from the JAX package's, by design of the one-process-per-rank
 layout: `evaluate` runs the whole eval stream on every rank, with the
-row-sharded leaves all_gathered for the duration (`full_params`);
-`train_steps_device` draws each data rank's slice from a generator
-seeded `fold_in(seed, data rank)` (`rank_generator`), which also feeds
-the loss's randomness; console and JSONL lines come from rank 0 only.
+row-sharded leaves all_gathered for the duration (`full_params`); console
+and JSONL lines come from rank 0 only.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from openrec_tpu_torch.parallel.mesh import (DEFAULT_RULES, mesh_device,
                                              replicated)
 from openrec_tpu_torch.parallel.train import (
     full_params, gather_batch, make_parallel_sparse_train_step,
-    make_parallel_train_step, rank_generator)
+    make_parallel_train_step, rank_generator, shared_generator)
 from openrec_tpu_torch.training.optim import lazy_adam
 from openrec_tpu_torch.training.trainer import Trainer
 
@@ -64,7 +71,8 @@ class ParallelTrainer(Trainer):
         self.rules = DEFAULT_RULES if rules is None else rules
         self.lr = lr
         self.tx = optimizer if optimizer is not None else lazy_adam(lr)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the loss's draws (alike on every rank) / this rank's sampling
+        self.generator = shared_generator(seed, mesh)
         self.rank_generator = rank_generator(seed, mesh)
         self.save_model_dir = save_model_dir
         self.max_to_keep = max_to_keep
@@ -102,15 +110,16 @@ class ParallelTrainer(Trainer):
     def train_steps_device(self, sampler, k: int, fused: bool = True):
         """K steps with on-device sampling: each data rank draws its slice
         of every step's batch (sampler.batch_size examples) from its own
-        generator, so the global batch is batch_size * d. `fused` exists
-        for the Trainer's signature; every step samples its own batch."""
+        generator, so the global batch is batch_size * d; the loss draws
+        from the shared one. `fused` exists for the Trainer's signature;
+        every step samples its own batch."""
         del fused
         losses = []
         for _ in range(k):
             local = sampler.sample(self.rank_generator)
             out = self._step.local_step(self.opt_state, local,
                                         gather_batch(local, self.mesh),
-                                        self.rank_generator)
+                                        self.generator)
             self.opt_state, loss = out[0], out[1]
             losses.append(loss)
         self.global_step += k

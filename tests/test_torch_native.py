@@ -112,3 +112,48 @@ def test_native_build_is_keyed_by_source():
     assert path.exists() and path.parent.name == "build"
     assert path.parent.parent.name == "openrec_tpu_torch"
     assert (path.parent.parent / "native" / "sampler.cpp").is_file()
+
+
+def test_binary_search_wrappers_match_jax_on_the_fixture():
+    """`sample_negatives`, `is_positive` and `pairwise_batch` over the
+    sorted u*I+i keys of the CiteULike fixture's train split: the JAX
+    package's outputs, dtypes included, for the same seed; the negatives
+    are no positives."""
+    import os
+
+    from openrec_tpu.data import loaders as jloaders
+
+    _need_reference()
+    raw = jloaders.load_citeulike(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "fixtures", "dataset")
+        + os.sep)
+    train, users, items = (raw["train_data"], raw["total_users"],
+                           raw["total_items"])
+    rec_u = np.ascontiguousarray(train["user_id"], np.int32)
+    rec_i = np.ascontiguousarray(train["item_id"], np.int32)
+    keys = np.unique(rec_u.astype(np.int64) * items + rec_i)
+    rng = np.random.default_rng(0)
+    n = len(rec_u)                   # every positive, then random pairs
+    qu = np.concatenate([rec_u, rng.integers(0, users, 2000)])
+    qi = np.concatenate([rec_i, rng.integers(0, items, 2000)])
+    got = native.is_positive(keys, qu, qi, items)
+    want = jnative.is_positive(keys, qu, qi, items)
+    assert got.dtype == want.dtype == bool
+    np.testing.assert_array_equal(got, want)
+    assert got[:n].all()
+    for seed in (0, 2 ** 63 + 5, -3):
+        got = native.sample_negatives(keys, qu, items, seed)
+        want = jnative.sample_negatives(keys, qu, items, seed)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        assert not native.is_positive(keys, qu, got, items).any()
+        idx = rng.integers(0, len(rec_u), 2000)
+        got = native.pairwise_batch(keys, rec_u, rec_i, idx, items, seed,
+                                    max_rounds=8)
+        want = jnative.pairwise_batch(keys, rec_u, rec_i, idx, items, seed,
+                                      max_rounds=8)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[0], rec_u[idx])
+        np.testing.assert_array_equal(got[1], rec_i[idx])

@@ -1,10 +1,11 @@
 """Port parity, the distribution layer on a gloo mesh of 8 CPU ranks:
 sharded lookup (values, zero rows outside, gradients), sharded scores /
 top-k / `sharded_pallas_topk` in the exact and the collision regime,
-the data-parallel dense step (BPR, with and without L2), the
-model-parallel DLRM step, the parallel eval step, the parallel sparse
-step in every dedup mode, the device-sampled builders, the sharded eval
-metrics and the 8-rank dry run; against the JAX package on its 8 virtual
+the data-parallel dense step (BPR, with and without L2; ItrMLP's batch
+norm over the global batch), the model-parallel DLRM step, the parallel
+eval step, the parallel sparse step in every dedup mode, the
+device-sampled builders, the sharded eval metrics and the 8-rank dry
+run; against the JAX package on its 8 virtual
 CPU devices with the same mesh shape (tests/test_parallel.py,
 tests/test_catalog_scale_eval.py:79-110).
 
@@ -35,7 +36,7 @@ from openrec_tpu.parallel import (
     make_parallel_sparse_train_step, make_parallel_train_step, pad_rows,
     sharded_dot_eval_metrics, sharded_eval_metrics, sharded_lookup,
     sharded_pallas_topk, sharded_scores, sharded_topk)
-from openrec_tpu.parallel.mesh import row_sharding
+from openrec_tpu.parallel.mesh import row_sharding, shard_params
 from openrec_tpu.training import sparse as jsparse
 from openrec_tpu.training.optim import lazy_adam
 from openrec_tpu_torch import convert
@@ -149,8 +150,8 @@ for l2 in (0.0, 0.1):
                       {k: float(v) for k, v in aux.items()})
 
 # D2: SGD steps (whose size is the gradient's, which Adam's is not) of
-# the DP_MODELS, tables row-sharded (2 x 4); ItrMLP's batch norm over the
-# batch is refused at two data ranks
+# the DP_MODELS, tables row-sharded (2 x 4), and of ItrMLP, whose batch
+# norm takes the global batch's statistics
 from openrec_tpu_torch import models as tmodels
 from openrec_tpu_torch.training.optim import GradientTransformation
 sgd = GradientTransformation(
@@ -169,12 +170,15 @@ for name, (widths, kw) in inp["dp_models"].items():
         st, loss, aux = step(st, batch_t(c["batch"]))
     out[f"dp_{name}"] = (float(loss), gathered(model, sh, mesh),
                          {k: float(v) for k, v in aux.items()})
-try:
-    par.make_parallel_train_step(tmodels.ItrMLP(32, 64, 8, device="cpu"),
-                                 sgd, mesh, rules=())[1]()
-    out["itr_refused"] = None
-except NotImplementedError as e:
-    out["itr_refused"] = str(e)
+c = inp["dp_itr"]
+model = tmodels.ItrMLP(32, 64, 8, **c["kw"], device="cpu")
+model.load_params(c["params"])
+step, init = par.make_parallel_train_step(model, sgd, mesh, rules=())
+_, st, sh = init()
+for i in range(2):
+    st, loss, aux = step(st, batch_t(c["batch"]))
+out["dp_itr"] = (float(loss), gathered(model, sh, mesh),
+                 {k: float(v) for k, v in aux.items()})
 
 # E: model-parallel DLRM step, tables row-sharded (4 x 2)
 mesh = mesh_of(4, 2)
@@ -418,6 +422,26 @@ def run(tmp_path_factory):
                 jax.random.PRNGKey(1))
         ref[f"dp_{name}"] = (float(loss), _flat(params),
                              {k: float(v) for k, v in aux.items()})
+    # ItrMLP: its tables widened from 0.01 and a nonzero item bias, so that
+    # the batch norms are far from flat
+    kw = dict(user_dims=(10, 8), item_dims=(12, 8))
+    model = jmodels.ItrMLP(32, 64, 8, **kw)
+    params = _np(model.init(jax.random.PRNGKey(0)))
+    params["user_embed"] = params["user_embed"] * 30.0
+    params["item_embed"] = params["item_embed"] * 30.0
+    params["item_bias"] = rng.normal(scale=0.3, size=(64, 1)).astype(
+        np.float32)
+    inp["dp_itr"] = dict(kw=kw, params=_flat(params), batch=batch)
+    tx = optax.sgd(DP_LR)
+    step_fn, _ = make_parallel_train_step(model, tx, mesh)
+    params, _ = shard_params(params, mesh)
+    opt_state = tx.init(params)
+    for i in range(2):
+        params, opt_state, loss, aux = step_fn(
+            params, opt_state, to_device(batch, batch_sharding(mesh)),
+            jax.random.PRNGKey(1))
+    ref["dp_itr"] = (float(loss), _flat(params),
+                     {k: float(v) for k, v in aux.items()})
 
     # E: model-parallel DLRM step (:183-207)
     mesh = make_mesh(data=4, model=2)
@@ -661,12 +685,20 @@ def test_dp_step_of_summed_and_batch_free_losses_matches_jax(run, name):
                                        atol=1e-7, err_msg=k)
 
 
-def test_dp_step_refuses_a_loss_that_does_not_split(run):
-    """ItrMLP's MLP normalises over the batch, so its loss is no sum of
-    the slices' losses: two data ranks refuse it at init."""
-    _, _, outs = run
+def test_dp_step_of_a_batch_norm_model_matches_jax(run):
+    """ItrMLP's MLPs normalise over the batch: at 2 data ranks (x 4 model
+    ranks, replicated) the batch norm takes the global batch's mean and
+    variance, so two SGD steps give JAX's loss, aux and parameters."""
+    _, ref, outs = run
+    want_loss, want_params, want_aux = ref["dp_itr"]
     for o in outs:
-        assert o["itr_refused"] and "does not split" in o["itr_refused"]
+        loss, params, aux = o["dp_itr"]
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+        _params_close(params, want_params)
+        assert set(aux) == set(want_aux)
+        for k in want_aux:
+            np.testing.assert_allclose(aux[k], want_aux[k], rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
 
 
 def test_model_parallel_dlrm_step_matches_jax(run):
