@@ -280,6 +280,18 @@ failure raises and exits non-zero:
      (device-sampled), 10 SGD steps each at two data ranks, held against
      the flat Trainer on one rank of the same card from the same init and
      seeds within the CPU tests' rtol 1e-5 / atol 1e-6; ms/step both ways.
+     (g) The same two gloo ranks as one data rank x two model ranks,
+     every table row-sharded by the default rules: the GRU RNNRec at
+     LastFM width with the full (vocabulary-parallel) softmax, host-fed,
+     and with the sampled softmax, device-sampled; UCML at CiteULike width
+     (one pad user row); ItrMLP at Netflix width (one pad user row) and
+     one `update_embeddings` over each shard; 10 SGD steps each, held
+     against the flat Trainer on one rank within (f)'s bars, pad rows 0;
+     then 256 requests served from RNNRec's two 7,299-row shards through
+     K1 and K2 (`sharded_pallas_topk`): every score the fp32 score at its
+     id, recall@100 against the exact top-k at least the target less
+     0.01, one launch per rank and kernel; ms/step both ways and its
+     seconds.
 
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
@@ -295,7 +307,8 @@ from the serving path for K1/K2 and the training path for K3,
 `launches_visual` from phase 9, `launches_sequence` from phase 10,
 `launches_itr` from phase 11, `launches_parallel` from phase 12 (a);
 K1 and K2 with `amazon_shard2` / `amazon_shard4` entries, the per-shard
-shapes timed in phase 4, whose `launches` count phase 12 (b)'s; each with
+shapes timed in phase 4, whose `launches` count phase 12 (b)'s, and a
+`lastfm_shard2` entry whose `launches` count (g)'s requests; each with
 a `tradesy` entry whose
 `launches` count phase 9's VBPR requests, a `lastfm` entry whose
 `launches` count phase 10's RNNRec requests and a `netflix` entry whose
@@ -363,6 +376,9 @@ NETFLIX = dict(name="netflix", users=480_189, items=17_770, dim=20,
 BATCH, K, REQUESTS = 256, 100, 8
 # the Amazon catalog's row shards over m = 2 and m = 4 ranks (pad_rows)
 SHARD2, SHARD4 = 225_083, 112_542
+# the LastFM catalog's row shards over m = 2 ranks (phase 12 (g)'s
+# RNNRec out_weight / out_bias)
+LASTFM_SHARD2 = -(-(LASTFM["items"] or 0) // 2)
 TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
@@ -532,6 +548,13 @@ K1K2_CASES = [
     ("amazon shard m=2 K2 shape", BATCH, SHARD2, 64, "bfloat16", 128, ""),
     ("amazon shard m=4 K1 shape", BATCH, SHARD4, 64, "bfloat16", 16, "pad2"),
     ("amazon shard m=4 K2 shape", BATCH, SHARD4, 64, "bfloat16", 64, "pad2"),
+    # phase 12 (g)'s row shards of RNNRec's LastFM output layer over m = 2
+    # (7,299 rows, fp32 D = 32) at the buckets `pallas` (1) and `pallas2`
+    # (4) pick there
+    ("lastfm shard m=2 K1 shape", BATCH, LASTFM_SHARD2, 32, "float32", 1,
+     ""),
+    ("lastfm shard m=2 K2 shape", BATCH, LASTFM_SHARD2, 32, "float32", 4,
+     ""),
 ]
 
 
@@ -3586,6 +3609,28 @@ import chip_smoke
 chip_smoke.dp2_rank(int(os.environ["CHIP_SMOKE_SEED"]),
                     json.loads(os.environ["CHIP_SMOKE_DP2"]))
 """
+# (g): the same two gloo ranks as ONE data rank x TWO model ranks, every
+# table row-sharded over 'model' by the default rules: the GRU RNNRec at
+# LastFM width with its full (vocabulary-parallel) softmax, host-fed, and
+# with the sampled softmax, device-sampled; then its shards serve
+# `requests` windows through K1 and K2; UCML at CiteULike width (one pad
+# user row; tables x `ucml_scale`, so that censoring bites); ItrMLP at
+# Netflix width (one pad user row) with one `update_embeddings` after its
+# steps. Each held against the flat Trainer on one rank of the same card
+# within (f)'s bars. widths: as DP2's.
+MP2 = dict(steps=10, records=100_000, device="cuda", timeout=300,
+           lr={"RNNRec": 0.05, "RNNRec-sampled": 0.05, "UCML": 0.01,
+               "ItrMLP": 1e-3},
+           batch={"RNNRec": 256, "RNNRec-sampled": 256, "UCML": 1000,
+                  "ItrMLP": 256},
+           ucml_scale=10.0, requests=256, rtol=1e-5, atol=1e-6, widths=None)
+MP2_MODELS = ("RNNRec", "RNNRec-sampled", "UCML", "ItrMLP")
+MP2_RANK = r"""
+import json, os
+import chip_smoke
+chip_smoke.mp2_rank(int(os.environ["CHIP_SMOKE_SEED"]),
+                    json.loads(os.environ["CHIP_SMOKE_MP2"]))
+"""
 
 
 def one_rank_mesh(torch, par, dev):
@@ -3892,7 +3937,7 @@ def sgd(lr):
 
 def parallel_itr(torch, port, par, mesh, seed, dev, run):
     """(e) ParallelTrainer on ItrMLP at phase 11's Netflix width on the
-    one-rank mesh (replicated: its `post_step` marks rows by global ids):
+    one-rank mesh (replicated, `rules=()`; (g) shards its tables):
     `itr_steps` host-fed steps of the chronological stream under
     deterministic algorithms, then `update_embeddings`, bit-identical to
     the flat Trainer's from the same init (lazy_adam: parameters,
@@ -4107,6 +4152,299 @@ def parallel_gloo(torch, seed, run=DP2):
     return out
 
 
+def mp2_setup(torch, port, name, seed, dev, run):
+    """(make, global batches or None, device sampler or None, global
+    batch, request batch or None) of one (g) model at its phase's width:
+    `make()` builds it from a generator seeded `seed`, the same on every
+    rank; RNNRec's host-fed batches and requests are drawn on the card
+    from seeded generators, alike on every rank."""
+    from types import SimpleNamespace
+
+    from openrec_tpu_torch.data import (DeviceTemporalSampler,
+                                        InteractionStore, loaders)
+    widths = run["widths"] or {}
+    B, n = run["batch"][name], run["steps"]
+
+    def gen(offset=0):
+        return torch.Generator(device=dev).manual_seed(seed + offset)
+    if name == "ItrMLP":
+        U, I = widths.get("netflix", (None, None))
+        data = netflix_data(seed, dict(ITR, records=run["records"], users=U,
+                                       items=I))
+        U, I = data["total_users"], data["total_items"]
+        return (lambda: itr_model(port, U, I, dev, gen()),
+                explicit_batches(data["train_data"], 0, n, B), None, B, None)
+    if name == "UCML":
+        U, I = widths.get("citeulike", (CITEULIKE["users"],
+                                        CITEULIKE["items"]))
+        rng = np.random.default_rng(seed + 43)
+        batches = []
+        for _ in range(n):
+            p = rng.integers(0, I, B)
+            batches.append({"user_id": rng.integers(0, U, B).astype(np.int32),
+                            "p_item_id": p.astype(np.int32),
+                            "n_item_id": ((p + rng.integers(1, I, B)) % I
+                                          ).astype(np.int32)})
+
+        def make():
+            model = port.UCML(U, I, CITEULIKE["dim"], CITEULIKE["dim"],
+                              margin=ZOO["margin"], device=dev,
+                              generator=gen())
+            with torch.no_grad():
+                model.user_embed.mul_(run["ucml_scale"])
+                model.item_embed.mul_(run["ucml_scale"])
+            return model
+        return make, batches, None, B, None
+    if "lastfm" in widths:
+        U, I = widths["lastfm"]
+        loaders = SimpleNamespace(LASTFM={"total_users": U,
+                                          "total_items": I})
+    data = lastfm_data(loaders, seed)
+    I = data["total_items"]
+    store = InteractionStore(data["train_data"], data["total_users"], I,
+                             sortby="ts")
+    L = SEQUENCE_FEED["RNNRec-gru"][1]
+    sampler = DeviceTemporalSampler(store, B, L, device=dev)
+    sampled = name == "RNNRec-sampled"
+    g = gen(31)
+    batches = None if sampled else [sampler.sample(g) for _ in range(n)]
+    request = None if sampled else DeviceTemporalSampler(
+        store, run["requests"], L, device=dev).sample(gen(32))
+    return (lambda: sequence_model(port, "RNNRec-gru", I, dev, gen(),
+                                   sampled=sampled),
+            batches, None if batches is not None else sampler, B, request)
+
+
+def pad_report(torch, views):
+    """{table: [pad rows of this rank's shard, max |value| there]}."""
+    out = {}
+    for name, v in views.items():
+        pads = v.shard[~v.real_rows()]
+        out[name] = [int(pads.shape[0]),
+                     float(pads.abs().max()) if pads.numel() else 0.0]
+    return out
+
+
+def mp2_serve(torch, par, bt, model, views, request, full, mesh, k):
+    """RNNRec's shards served through `sharded_pallas_topk` (K1 for
+    `pallas`, K2 for `pallas2`): each rank its [I/2, 32] out_weight shard,
+    pad rows at bias -1e30 (`serving_tables(views)`); after one untimed
+    warm-up call of each (the rank process loads the kernels' library),
+    launches counted from 0 over the two timed calls; on rank 0 (`full`
+    the gathered whole tables, else None) each score against the fp32
+    score at its id and recall@k against the exact top-k."""
+    with torch.no_grad():
+        u = model.hidden(request, tables=views)
+        w, b = model.serving_tables(views)
+    sync = torch.cuda.synchronize if u.is_cuda else (lambda: None)
+    methods = (("K1", "pallas"), ("K2", "pallas2"))
+    for kname, method in methods:
+        par.sharded_pallas_topk(u, w, b, k, mesh,
+                                recall_target=TARGETS[method],
+                                per_bucket=2 if kname == "K2" else 1)
+    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores}
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    for kname, method in methods:
+        pb, target = (2 if kname == "K2" else 1), TARGETS[method]
+        sync()
+        t = time.perf_counter()
+        vals, ids = par.sharded_pallas_topk(u, w, b, k, mesh,
+                                            recall_target=target,
+                                            per_bucket=pb)
+        sync()
+        r = {"launches": counters[kname].launches, "shard_rows":
+             int(w.shape[0]), "ms": (time.perf_counter() - t) * 1e3,
+             "target": target}
+        if full is not None:
+            scores = u @ full["out_weight"].T + full["out_bias"]
+            ev, ei = torch.topk(scores, k, dim=1)
+            at = scores.gather(1, ids.long())
+            r.update({
+                "ids_in_catalog": bool(((ids >= 0)
+                                        & (ids < scores.shape[1])).all()),
+                "max_abs_err": float((at - vals).abs().max()),
+                "scores_ok": bool(near(at, vals).all()
+                                  and torch.isfinite(vals).all()),
+                "recall_vs_exact": float(np.mean([
+                    len(set(a) & set(c)) / k for a, c in
+                    zip(ids.tolist(), ei.tolist())]))})
+            r["ok"] = r["ids_in_catalog"] and r["scores_ok"] \
+                and r["recall_vs_exact"] >= target - 0.01
+        out[kname] = r
+    return out
+
+
+def mp2_case(torch, port, par, bt, mesh, name, seed, dev, run, rank):
+    """One (g) model: `steps` SGD steps of a ParallelTrainer whose tables
+    are row-sharded over the two model ranks (host-fed: every rank passes
+    the global batch; device-sampled: the rank generator of data rank 0,
+    the loss's from the shared generator), ItrMLP's `update_embeddings`
+    over each shard, RNNRec's shards served; on rank 0 the flat Trainer
+    on the same batches from the same init and seed. Wall ms of each."""
+    make, batches, sampler, B, request = mp2_setup(torch, port, name, seed,
+                                                   dev, run)
+    n, lr = run["steps"], run["lr"][name]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(fn, per=n):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3 / per
+
+    pt = port.ParallelTrainer(make(), mesh, optimizer=sgd(lr), seed=seed)
+    if batches is not None:
+        losses, ms = timed(lambda: torch.stack(
+            [pt.train_step(b)[0] for b in batches]))
+    else:
+        losses, ms = timed(lambda: pt.train_steps_device(sampler, n))
+    views = pt.tables()
+    out = {"steps": n, "global_batch": B, "lr": lr,
+           "feed": "host-fed" if batches is not None else
+           "device-sampled (DeviceTemporalSampler)",
+           "sharded": sorted(views), "ms_per_step_m2": ms}
+    if name == "ItrMLP":
+        _, out["update_ms_m2"] = timed(
+            lambda: pt.model.update_embeddings(tables=views), 1)
+    out["pads"] = pad_report(torch, views)
+    with par.full_params(pt.model, pt.shardings, mesh):
+        got = {k: v.detach().clone() for k, v in pt.params.items()}
+    if request is not None:
+        out["serving"] = mp2_serve(torch, par, bt, pt.model, views, request,
+                                   got if rank == 0 else None, mesh,
+                                   K)
+    if rank != 0:
+        return out
+    ref = port.Trainer(make(), optimizer=sgd(lr), seed=seed, device=dev)
+    if batches is None:
+        g = torch.Generator(device=dev).manual_seed(par.fold_in(seed, 0))
+        batches = [sampler.sample(g) for _ in range(n)]
+    want, ms1 = timed(lambda: torch.stack([ref.train_step(b)[0]
+                                           for b in batches]))
+    if name == "ItrMLP":
+        _, out["update_ms_one_rank"] = timed(ref.model.update_embeddings, 1)
+    init = {k: v.detach() for k, v in make().params().items()}
+    outside, worst, moved = 0, 0.0, 0.0
+    for k, w in ref.params.items():
+        g, w = got[k], w.detach()
+        if g.shape != w.shape:
+            fail(f"parallel (g) {name}: gathered '{k}' is "
+                 f"{tuple(g.shape)}, not {tuple(w.shape)}")
+        diff = (g - w).abs()
+        outside += int((diff > run["atol"] + run["rtol"] * w.abs()).sum())
+        worst = max(worst, float(diff.max()))
+        moved = max(moved, float((w - init[k]).abs().max()))
+    loss_rel = float(((losses - want).abs() / want.abs()).max())
+    out.update({"ms_per_step_one_rank": ms1, "loss_first": float(want[0]),
+                "loss_last": float(want[-1]), "loss_max_rel_diff": loss_rel,
+                "params_max_abs_diff": worst, "params_outside": outside,
+                "params_max_moved": moved})
+    if name == "UCML":
+        ids = {"user_embed": np.concatenate([b["user_id"] for b in batches]),
+               "item_embed": np.concatenate(
+                   [np.r_[b["p_item_id"], b["n_item_id"]] for b in batches])}
+        out["touched_norms_max"] = max(
+            float(torch.linalg.vector_norm(got[t][torch.as_tensor(
+                np.unique(i), device=dev).long()], dim=1).max())
+            for t, i in ids.items())
+    out["ok"] = (outside == 0 and loss_rel <= run["rtol"]
+                 and bool(torch.isfinite(want).all())
+                 and out.get("touched_norms_max", 0.0) <= 1.0 + 1e-4
+                 and all(r["ok"] for r in out.get("serving", {}).values()))
+    return out
+
+
+def mp2_rank(seed, run):
+    """One rank of (g): joins the two-rank gloo job as a 1 x 2 mesh (one
+    data rank, two model ranks; CUDA tensors over the host), runs every
+    MP2_MODELS case and prints its results as one `MP2 {...}` line (rank
+    0's hold the comparisons)."""
+    import torch
+    import torch.distributed as dist
+
+    import openrec_tpu_torch as port
+    from openrec_tpu_torch import parallel as par
+    from openrec_tpu_torch.ops import bucketed_topk as bt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = par.make_mesh(1, 2, device=run["device"], backend="gloo")
+    dev = par.mesh.mesh_device(mesh)
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "mesh": list(mesh.mesh.shape),
+           "device": str(dev)}
+    for name in MP2_MODELS:
+        out[name] = mp2_case(torch, port, par, bt, mesh, name, seed, dev, run,
+                             rank)
+    print("MP2 " + json.dumps(out), flush=True)
+
+
+def parallel_model(torch, seed, run=MP2):
+    """(g) MP2_MODELS at one data rank x two model ranks sharing the card
+    over gloo, launched as (f) is; each held against one rank on the same
+    card from the same init and seed within rtol / atol, RNNRec's shards
+    served through K1 and K2. A rank that fails, a result outside the
+    bars or a launch past its timeout fails the phase. Returns the
+    results with the launches of K1 and K2 summed over both ranks."""
+    from openrec_tpu_torch.parallel.launch import spawn_local
+    t = time.perf_counter()
+    try:
+        outs = spawn_local(MP2_RANK, 2, timeout=run["timeout"], env={
+            "CHIP_SMOKE_SEED": str(seed), "CHIP_SMOKE_MP2": json.dumps(run)})
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"parallel (g): the two gloo ranks failed: {str(e)[-3000:]}")
+    ranks = []
+    for text in outs:
+        lines = [ln for ln in text.splitlines() if ln.startswith("MP2 ")]
+        if not lines:
+            fail(f"parallel (g): a rank printed no result: {text[-3000:]}")
+        ranks.append(json.loads(lines[-1][4:]))
+    out = ranks[0]
+    out["launch_s"] = time.perf_counter() - t
+    out["launches"] = {k: sum(r["RNNRec"]["serving"][k]["launches"]
+                              for r in ranks) for k in ("K1", "K2")}
+    for name in MP2_MODELS:
+        r = out[name]
+        # the last rank holds the pad rows
+        r["pads"] = ranks[-1][name]["pads"]
+        r["ok"] = r["ok"] and all(v[1] == 0.0 for rk in ranks
+                                  for v in rk[name]["pads"].values())
+        extra = ""
+        if "update_ms_m2" in r:
+            extra += (f"; update_embeddings {r['update_ms_m2']:.2f} ms at "
+                      f"m 2, {r['update_ms_one_rank']:.2f} ms one rank")
+        if "touched_norms_max" in r:
+            extra += f"; touched row norms max {r['touched_norms_max']:.6f}"
+        for kname, s in r.get("serving", {}).items():
+            extra += (f"; {kname} served {run['requests']} requests from "
+                      f"{s['shard_rows']:,}-row shards: recall@{K} "
+                      f"{s['recall_vs_exact']:.4f} (target {s['target']}), "
+                      f"max |err| {s['max_abs_err']:.3g}, {s['ms']:.2f} ms, "
+                      f"launches {out['launches'][kname]}")
+        print(f"parallel (g) {name} at 1 data x 2 model ranks on one card "
+              f"over gloo, tables {r['sharded']} row-sharded (pad rows "
+              f"{r['pads']}), {r['feed']}, global batch {r['global_batch']}, "
+              f"{r['steps']} SGD steps: {r['ms_per_step_m2']:.2f} ms/step at "
+              f"m 2, {r['ms_per_step_one_rank']:.2f} ms/step one rank; loss "
+              f"{r['loss_first']:.6g} -> {r['loss_last']:.6g}, max rel diff "
+              f"{r['loss_max_rel_diff']:.3g}; params max |diff| "
+              f"{r['params_max_abs_diff']:.3g} ({r['params_outside']} "
+              f"outside rtol {run['rtol']:g} / atol {run['atol']:g}), moved "
+              f"up to {r['params_max_moved']:.3g}{extra}", flush=True)
+        if not r["ok"]:
+            fail(f"parallel (g): {name} with row-sharded tables differs from "
+                 f"one rank: {json.dumps(r)}")
+    # (CPU tensors, in a rehearsal, launch no kernel)
+    if run["device"] == "cuda" and any(out["launches"][k] != 2
+                                       for k in ("K1", "K2")):
+        fail(f"parallel (g): launches {out['launches']}, want 2 each (one "
+             "per rank)")
+    return out
+
+
 def phase_parallel(torch, port, seed, dev, run=PARALLEL):
     """Phase 12: the distribution layer on the card (its docstring at the
     top of this file)."""
@@ -4137,6 +4475,10 @@ def phase_parallel(torch, port, seed, dev, run=PARALLEL):
     t = time.perf_counter()
     out["gloo_d2"] = parallel_gloo(torch, seed)
     out["gloo_d2_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["gloo_m2"] = parallel_model(torch, seed)
+    out["gloo_m2_s"] = time.perf_counter() - t
+    print(f"parallel (g): {out['gloo_m2_s']:.1f} s", flush=True)
     return out
 
 
@@ -4204,8 +4546,9 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     Amazon serving shape (bf16, the tensor-core route), with the
     CiteULike shape (fp32, the CUDA-core route), VBPR's Tradesy shape
     (bf16, D = 100), RNNRec's LastFM shape (fp32, D = 32) and ItrMLP's
-    Netflix shape (fp32, D = 20) beside them, each at the bucket
-    `bucket_score_topk` picks there for its method's target. The
+    Netflix shape (fp32, D = 20) beside them, and the row shards phase 12
+    serves from (Amazon's over m = 2 and 4, LastFM's over m = 2), each at
+    the bucket `bucket_score_topk` picks there for its method's target. The
     CiteULike, Tradesy, LastFM and Netflix entries' `max_abs_err` is
     phase 2's at that shape and bucket."""
     def inputs(I, D, dtype):
@@ -4220,7 +4563,9 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
     lastfm = inputs(LASTFM["items"], LASTFM["dim"], torch.float32)
     netflix = inputs(NETFLIX["items"], NETFLIX["dim"], torch.float32)
     shards = {"amazon_shard2": inputs(SHARD2, AMAZON["dim"], torch.bfloat16),
-              "amazon_shard4": inputs(SHARD4, AMAZON["dim"], torch.bfloat16)}
+              "amazon_shard4": inputs(SHARD4, AMAZON["dim"], torch.bfloat16),
+              "lastfm_shard2": inputs(LASTFM_SHARD2, LASTFM["dim"],
+                                      torch.float32)}
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
@@ -4283,7 +4628,8 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
             t = time_bucket_kernel(torch, bt, u, v, b, top2, bt.choose_bucket(
                 I, K, recall_target=TARGETS[method],
                 per_bucket=2 if top2 else 1))
-            t["variant"] = "mma-bf16"
+            t["variant"] = "mma-bf16" if v.dtype == torch.bfloat16 \
+                else F32_VARIANT
             t["max_abs_err"] = next(
                 (c["max_abs_err"] for c in compare_report
                  if c["kernel"] == kname and c["I"] == I
@@ -4297,7 +4643,8 @@ def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
                         ("lastfm", entry["lastfm"]),
                         ("netflix", entry["netflix"]),
                         ("amazon_shard2", entry["amazon_shard2"]),
-                        ("amazon_shard4", entry["amazon_shard4"])):
+                        ("amazon_shard4", entry["amazon_shard4"]),
+                        ("lastfm_shard2", entry["lastfm_shard2"])):
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
@@ -4588,6 +4935,8 @@ def main(argv=None):
             for m in (2, 4):
                 entry[f"amazon_shard{m}"]["launches"] = \
                     parallel["retrieval"]["b"][f"m{m}_{kname}"]["launches"]
+            entry["lastfm_shard2"]["launches"] = \
+                parallel["gloo_m2"]["launches"][kname]
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
@@ -4768,8 +5117,10 @@ def main(argv=None):
                 "checkpoint_bitwise")},
             "itr_world1": parallel["itr_world1"],
             "gloo_d2": parallel["gloo_d2"],
+            "gloo_m2": parallel["gloo_m2"],
             "seconds": {m: parallel[m + "_s"] for m in (
-                "retrieval", "sparse", "trainer", "itr_world1", "gloo_d2")},
+                "retrieval", "sparse", "trainer", "itr_world1", "gloo_d2",
+                "gloo_m2")},
             "phase_s": parallel["phase_s"]}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,7 @@ npz checkpoints load by name. BPR's names hold neither character.
   model.load_params(flat)               # {path: tensor} from JAX / npz
   grads = model.grad_transform(grads, batch)   # trainer hooks, identity
   model.post_step(batch)                       # by default
+  model.post_step(batch, tables={"user_embed": view})   # a row shard
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ class Recommender(nn.Module):
         `tables` replaces embedding tables by name for this call, e.g. with
         the gathered views of the O(batch) sparse step
         (`training/sparse.py`), so that autograd never reaches the full
-        table. `generator` is the Trainer's `torch.Generator` (the JAX
-        package's per-step rng): a model whose loss draws randomness
-        (dropout) draws from it, and only when it is given; the others
-        never touch it, so it does not advance."""
+        table, or with the views of row-sharded tables on a mesh
+        (`parallel.ShardedTable`). `generator` is the Trainer's
+        `torch.Generator` (the JAX package's per-step rng): a model whose
+        loss draws randomness (dropout) draws from it, and only when it
+        is given; the others never touch it, so it does not advance."""
         raise NotImplementedError
 
     def table(self, name: str, tables: dict | None = None):
@@ -66,11 +68,6 @@ class Recommender(nn.Module):
     # slice's part is its examples' terms and the parts add up.
     loss_reduction: str | None = None
 
-    # The loss reads its embedding tables through `table` / `lookup`, so a
-    # row-sharded table reaches it as a view (`parallel/train.py`); False:
-    # it reads them whole, and they may not shard.
-    table_views: bool = True
-
     def batch_sums(self, total: torch.Tensor, aux: dict) -> dict:
         """The parts of `total` (key "total") and of each aux term that
         are sums over the batch's examples; the rest of each is a batch
@@ -95,10 +92,13 @@ class Recommender(nn.Module):
         identity."""
         return grads
 
-    def post_step(self, batch: dict) -> None:
+    def post_step(self, batch: dict, tables: dict | None = None) -> None:
         """Applied after each optimizer step, IN PLACE on the parameters
         (e.g. norm censoring; `openrec_tpu/models/base.py:360-364` returns
-        new params instead). Default: nothing."""
+        new params instead). `tables` as in `loss`: a row-sharded table
+        comes as a view (`parallel.ShardedTable`), which the functions of
+        `modules/embedding.py` (`censor_norm_`) resolve; the step reaches
+        it through `table`. Default: nothing."""
 
     def params(self) -> dict:
         """Flat {path: parameter}, keyed like the JAX params pytree."""

@@ -10,9 +10,16 @@ clears the marks. The MLP runs over the WHOLE table there, so its batch
 norm takes the statistics of every row, visited or not. In a
 data-parallel step the loss's batch norm takes the GLOBAL batch's
 statistics (`modules/global_batch.py`), so the loss splits over data
-ranks as a sum; `post_step` marks the global batch's rows and
-`update_embeddings` reads the replicated tables, so every rank does the
-same.
+ranks as a sum; `post_step` marks the global batch's rows in the flags,
+which stay whole, so every rank does the same.
+
+On a mesh whose rules shard `user_embed`, `item_embed` and `item_bias`
+over 'model', the loss reads them through their views (detached
+lookups); `update_embeddings(tables=views)` runs each MLP over this
+rank's shard, its batch norm over the whole table's real rows (summed
+over 'model', `ShardedTable.map_rows`; no pad row enters),
+and writes the flagged rows of the shard; `serving_tables(views)` gives
+this rank's shard of the served table, its pad rows at bias -1e30.
 
 The tables and flags stay `nn.Parameter`s under the JAX tree's names, so
 that `convert`, npz checkpoints and `load_params` carry them. They are
@@ -38,8 +45,8 @@ from torch import nn
 
 from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.models.base import Recommender
-from openrec_tpu_torch.modules.embedding import (embedding_lookup,
-                                                 normal_embed)
+from openrec_tpu_torch.modules.embedding import (map_rows, normal_embed,
+                                                 serving_rows, update_rows_)
 from openrec_tpu_torch.modules.mlp import MLP
 from openrec_tpu_torch.training.optim import adam, apply_updates
 
@@ -55,7 +62,6 @@ class ItrMLP(Recommender):
     # a sum over the records; the batch norm's statistics are the global
     # batch's in a data-parallel step, so the slices' sums add up to it
     loss_reduction = "sum"
-    table_views = False
 
     def __init__(self, total_users: int, total_items: int, dim_embed: int,
                  user_dims: Sequence[int] = (),
@@ -86,31 +92,32 @@ class ItrMLP(Recommender):
                 generator=generator)
             for dims in (user_dims, item_dims))
 
-    def user_vecs(self, batch: dict) -> torch.Tensor:
+    def user_vecs(self, batch: dict, tables: dict | None = None
+                  ) -> torch.Tensor:
         """The user MLP over the batch's rows (batch norm over them)."""
-        return self.user_mlp(embedding_lookup(self.user_embed.detach(),
-                                              batch["user_id"]))
+        return self.user_mlp(self.lookup("user_embed", batch["user_id"],
+                                         tables).detach())
 
-    def _item_vecs(self, item_ids) -> torch.Tensor:
-        return self.item_mlp(embedding_lookup(self.item_embed.detach(),
-                                              item_ids))
+    def _item_vecs(self, item_ids, tables=None) -> torch.Tensor:
+        return self.item_mlp(self.lookup("item_embed", item_ids,
+                                         tables).detach())
 
     def loss(self, batch: dict, tables: dict | None = None,
              generator: torch.Generator | None = None):
         """0.5 * sum((w * (label - sigmoid(u . v + b)))^2), w = (a - b) *
         label + b. Draws nothing."""
         item_ids = batch["item_id"]
-        bias = embedding_lookup(self.item_bias, item_ids).reshape(-1)
+        bias = self.lookup("item_bias", item_ids, tables).reshape(-1)
         label = batch["label"]
-        pred = torch.sigmoid(torch.sum(self.user_vecs(batch)
-                                       * self._item_vecs(item_ids), dim=1)
-                             + bias)
+        pred = torch.sigmoid(torch.sum(self.user_vecs(batch, tables)
+                                       * self._item_vecs(item_ids, tables),
+                                       dim=1) + bias)
         weight = (self.a - self.b) * label + self.b
         task = 0.5 * torch.sum((weight * (label - pred)) ** 2)
         return task, {"loss": task}
 
     @torch.no_grad()
-    def post_step(self, batch: dict) -> None:
+    def post_step(self, batch: dict, tables: dict | None = None) -> None:
         """Mark the visited rows (flags to 1.0), in place."""
         for flag, key in ((self.user_flag, "user_id"),
                           (self.item_flag, "item_id")):
@@ -118,15 +125,16 @@ class ItrMLP(Recommender):
             flag.index_fill_(0, ids.reshape(-1), 1.0)
 
     @torch.no_grad()
-    def update_embeddings(self) -> None:
+    def update_embeddings(self, tables: dict | None = None) -> None:
         """table[flagged] <- MLP(table)[flagged], the MLP over the full
         table (its batch norm over every row); then clear the flags. In
-        place."""
-        for table, flag, mlp in ((self.user_embed, self.user_flag,
-                                  self.user_mlp),
-                                 (self.item_embed, self.item_flag,
-                                  self.item_mlp)):
-            table.copy_(torch.where(flag[:, None] > 0, mlp(table), table))
+        place. With the views of row-sharded tables, each rank updates
+        its shard, the batch norm over the whole table's real rows."""
+        for name, flag, mlp in (("user_embed", self.user_flag,
+                                 self.user_mlp),
+                                ("item_embed", self.item_flag,
+                                 self.item_mlp)):
+            update_rows_(self.table(name, tables), flag, mlp)
             flag.zero_()
 
     def pretrain_identity(self, generator: torch.Generator | None = None,
@@ -142,12 +150,15 @@ class ItrMLP(Recommender):
                                  device=dev) - 0.5 for _ in range(steps)),
                 lr)
 
-    def serving_tables(self):
+    def serving_tables(self, tables: dict | None = None):
         """(item MLP over the full item table [I, dim], made contiguous;
-        item bias [I]) that `user_vecs` scores against."""
+        item bias [I]) that `user_vecs` scores against. With the views of
+        row-sharded tables, this rank's shard of both, the batch norm over
+        the whole table's real rows and the pad rows at bias -1e30."""
         with torch.no_grad():
-            items = self.item_mlp(self.item_embed.detach())
-        return items.contiguous(), self.item_bias.detach().reshape(-1)
+            items = map_rows(self.item_mlp, self.table("item_embed", tables))
+        return items.contiguous(), serving_rows(
+            self.table("item_bias", tables), -1e30).reshape(-1)
 
     def score(self, batch: dict) -> torch.Tensor:
         table, bias = self.serving_tables()

@@ -63,10 +63,10 @@ class WCML(NBPR):
                                      margin=self.margin)
 
     @torch.no_grad()
-    def post_step(self, batch: dict) -> None:
+    def post_step(self, batch: dict, tables: dict | None = None) -> None:
         dev = self.item_embed.device
-        censor_norm_(self.user_embed, batch["user_id"])
-        censor_norm_(self.item_embed, torch.cat([
+        censor_norm_(self.table("user_embed", tables), batch["user_id"])
+        censor_norm_(self.table("item_embed", tables), torch.cat([
             torch.as_tensor(batch["p_item_id"], device=dev).reshape(-1),
             torch.as_tensor(batch["n_item_id"], device=dev).reshape(-1)]))
 

@@ -9,7 +9,12 @@ item embeddings; its final state h [B, num_units] scores the catalog as
 h . out_weight^T + out_bias ([I, num_units], [I]). The loss is the
 softmax CE over the full catalog, or with `softmax_samples` set TF's
 sampled softmax (log-uniform candidates by default), whose candidates
-are drawn from the generator the Trainer hands to `loss`.
+are drawn from the generator the Trainer hands to `loss`. Every table is
+read through `table` / `lookup`, so on a mesh whose rules shard
+`item_embed`, `out_weight` and `out_bias` over 'model' the full softmax
+is the vocabulary-parallel one (`table_softmax_ce` resolves the view's
+`softmax_ce`) and the
+sampled one gathers its true and candidate rows through the views.
 
 VanillaYouTubeRec (`:95-165`): the window's item embeddings summed over
 its first seq_len positions and divided by L, not by seq_len (the
@@ -27,7 +32,9 @@ the tests start from JAX's init through `convert.params_from_jax`.
 Serving: `hidden(batch)` gives the vector a K1/K2/K3 request scores
 with: RNNRec's state against `out_weight` and `out_bias`, the YouTube
 models' last hidden layer against the transposed last MLP weight and no
-bias (`serving_tables()`).
+bias (`serving_tables()`). On a mesh, `hidden(batch, tables=views)`
+and `serving_tables(views)` give a rank its shard to serve (through
+`parallel.sharded_pallas_topk`), its pad rows at bias -1e30.
 """
 
 from __future__ import annotations
@@ -40,17 +47,17 @@ from torch import nn
 from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.models.base import Recommender
 from openrec_tpu_torch.modules.embedding import (embedding_lookup,
-                                                 normal_embed)
+                                                 normal_embed, serving_rows)
 from openrec_tpu_torch.modules.interactions import masked_sum
 from openrec_tpu_torch.modules.losses import (sampled_softmax_loss,
-                                              softmax_ce_loss)
+                                              softmax_ce_loss,
+                                              table_softmax_ce)
 from openrec_tpu_torch.modules.mlp import MLP, glorot_uniform
 from openrec_tpu_torch.modules.rnn import GRU, LSTM
 
 
 class RNNRec(Recommender):
     loss_reduction = "mean"
-    table_views = False
 
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int, num_units: int, cell_type: str = "gru",
@@ -75,23 +82,26 @@ class RNNRec(Recommender):
             (total_items, num_units), generator=generator, device=dev))
         self.out_bias = nn.Parameter(torch.zeros(total_items, device=dev))
 
-    def hidden(self, batch: dict) -> torch.Tensor:
+    def hidden(self, batch: dict, tables: dict | None = None
+               ) -> torch.Tensor:
         """The recurrent state after each window's last item, [B, H]."""
-        seq_vecs = embedding_lookup(self.item_embed, batch["seq_item_id"])
+        seq_vecs = self.lookup("item_embed", batch["seq_item_id"], tables)
         return self.cell(seq_vecs, batch["seq_len"])
 
     def loss(self, batch: dict, tables: dict | None = None,
              generator: torch.Generator | None = None):
-        state = self.hidden(batch)
+        state = self.hidden(batch, tables)
+        weight = self.table("out_weight", tables)
+        bias = self.table("out_bias", tables)
         if self.softmax_samples is not None:
             if generator is None:
                 raise ValueError("sampled softmax needs a generator")
             task = sampled_softmax_loss(
-                self.out_weight, self.out_bias, state, batch["label"],
+                weight, bias, state, batch["label"],
                 num_sampled=self.softmax_samples, generator=generator,
                 distribution=self.softmax_sample_distribution)
         else:
-            task = softmax_ce_loss(self.score_hidden(state), batch["label"])
+            task = table_softmax_ce(state, weight, bias, batch["label"])
         return task, {"loss": task}
 
     def score_hidden(self, state: torch.Tensor) -> torch.Tensor:
@@ -100,14 +110,16 @@ class RNNRec(Recommender):
     def score(self, batch: dict) -> torch.Tensor:
         return self.score_hidden(self.hidden(batch))
 
-    def serving_tables(self):
-        """(item table [I, H], bias [I]) that `hidden` scores against."""
-        return self.out_weight.detach(), self.out_bias.detach()
+    def serving_tables(self, tables: dict | None = None):
+        """(item table [I, H], bias [I]) that `hidden` scores against;
+        with the views of row-sharded tables, this rank's shards, its pad
+        rows at bias -1e30 so that none is ever served."""
+        return (serving_rows(self.table("out_weight", tables)),
+                serving_rows(self.table("out_bias", tables), -1e30))
 
 
 class VanillaYouTubeRec(Recommender):
     loss_reduction = "mean"
-    table_views = False
 
     def __init__(self, total_items: int, dim_item_embed: int,
                  max_seq_len: int,
@@ -135,25 +147,27 @@ class VanillaYouTubeRec(Recommender):
     def _mlp_in_dim(self, dim_item_embed):
         return dim_item_embed
 
-    def _pooled(self, batch):
+    def _pooled(self, batch, tables=None):
         """Sum of the first seq_len item vectors / L (the reference's
         mean over the padded axis)."""
-        seq_vecs = embedding_lookup(self.item_embed, batch["seq_item_id"])
+        seq_vecs = self.lookup("item_embed", batch["seq_item_id"], tables)
         return masked_sum(seq_vecs, batch["seq_len"]) / seq_vecs.shape[1]
 
-    def _features(self, batch):
-        return self._pooled(batch)
+    def _features(self, batch, tables=None):
+        return self._pooled(batch, tables)
 
     def hidden(self, batch: dict,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               tables: dict | None = None) -> torch.Tensor:
         """The MLP's last hidden layer [B, units[-2]], with dropout when
         `generator` is given: the logits are it times the last weight."""
-        return self.mlp(self._features(batch), train=generator is not None,
-                        generator=generator, layers=len(self.mlp) - 1)
+        return self.mlp(self._features(batch, tables),
+                        train=generator is not None, generator=generator,
+                        layers=len(self.mlp) - 1)
 
     def loss(self, batch: dict, tables: dict | None = None,
              generator: torch.Generator | None = None):
-        logits = self.hidden(batch, generator) @ self.mlp[-1].w
+        logits = self.hidden(batch, generator, tables) @ self.mlp[-1].w
         task = softmax_ce_loss(logits, batch["label"])
         return task, {"loss": task}
 
@@ -191,7 +205,7 @@ class YouTubeRec(VanillaYouTubeRec):
     def _mlp_in_dim(self, dim_item_embed):
         return dim_item_embed + self.dim_gender_embed + self.dim_geo_embed
 
-    def _features(self, batch):
+    def _features(self, batch, tables=None):
         gender = embedding_lookup(self.gender_embed, batch["user_gender"])
         geo = embedding_lookup(self.geo_embed, batch["user_geo"])
-        return torch.cat([gender, geo, self._pooled(batch)], dim=1)
+        return torch.cat([gender, geo, self._pooled(batch, tables)], dim=1)

@@ -5,7 +5,8 @@ euclidean distances plus bias (`pairwise_eudist_hinge_loss`, one lookup
 for the positives and negatives together), `l2_weight` times the L2 of
 the gathered rows, and after every optimizer step `post_step`, which
 projects the batch's user rows and its positive and negative item rows
-onto the unit ball in place (`censor_norm_`). Serving scores
+onto the unit ball in place (`censor_norm_`; a row-sharded table's view
+censors the ids in its shard). Serving scores
 -||u - v||^2 + b in the matmul form 2u.V^T - ||u||^2 - ||V||^2 + b, so
 ranks agree with the JAX package's up to summation order.
 """
@@ -52,9 +53,9 @@ class UCML(FactorRecommender):
         return task + self.l2_weight * l2, {"loss": task, "l2_loss": l2}
 
     @torch.no_grad()
-    def post_step(self, batch: dict) -> None:
-        censor_norm_(self.user_embed, batch["user_id"])
-        censor_norm_(self.item_embed, self._item_ids(batch))
+    def post_step(self, batch: dict, tables: dict | None = None) -> None:
+        censor_norm_(self.table("user_embed", tables), batch["user_id"])
+        censor_norm_(self.table("item_embed", tables), self._item_ids(batch))
 
     def score(self, batch: dict) -> torch.Tensor:
         user_vec = embedding_lookup(self.user_embed, batch["user_id"])

@@ -3,7 +3,10 @@
 Counterpart of `openrec_tpu/modules/embedding.py`: uniform(-0.05, 0.05)
 init (and tf1's 'normal' init, 0.01 times a truncated normal), look-up,
 and norm censoring (also in place, for a model's `post_step`). A table
-is a [num, dim] tensor (an `nn.Parameter` inside a model).
+is a [num, dim] tensor (an `nn.Parameter` inside a model), or a view
+that carries its own method of a function's name, which the function
+resolves (`training.sparse.SubTable`'s `lookup`; a row shard,
+`parallel.ShardedTable`).
 """
 
 from __future__ import annotations
@@ -51,11 +54,39 @@ def censor_norm_(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:
     row /= max(||row||, eps); returns `table`. Duplicate ids are safe: every
     copy of a row is computed from the original row before any is written,
     so whichever copy lands last (`index_copy_` leaves that open on CUDA)
-    writes the same value."""
+    writes the same value. A view that carries its own `censor_norm_`
+    (a row shard, `parallel.ShardedTable`) censors the ids in its rows."""
+    if hasattr(table, "censor_norm_"):
+        return table.censor_norm_(ids, eps)
     ids = torch.as_tensor(ids, device=table.device).long().reshape(-1)
     rows = table.index_select(0, ids)
     norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
     return table.index_copy_(0, ids, rows / torch.clamp(norm, min=eps))
+
+
+def map_rows(fn, table: torch.Tensor) -> torch.Tensor:
+    """fn(table): a module over the whole table (ItrMLP's MLPs). A view
+    that carries its own `map_rows` (a row shard) runs fn over its rows,
+    with the statistics of the whole table."""
+    if hasattr(table, "map_rows"):
+        return table.map_rows(fn)
+    return fn(table)
+
+
+def update_rows_(table: torch.Tensor, flag: torch.Tensor, fn):
+    """table[flag > 0] <- fn(table)[flag > 0] IN PLACE, fn over the whole
+    table (`map_rows`); `flag` [rows]. A view updates its own rows."""
+    if hasattr(table, "update_rows_"):
+        return table.update_rows_(flag, fn)
+    return table.copy_(torch.where(flag[:, None] > 0, fn(table), table))
+
+
+def serving_rows(table: torch.Tensor, pad: float = 0.0) -> torch.Tensor:
+    """The table to serve from, detached. A view (a row shard) gives its
+    rows, its pad rows at `pad`."""
+    if hasattr(table, "serving_rows"):
+        return table.serving_rows(pad)
+    return table.detach()
 
 
 def censor_norm(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:

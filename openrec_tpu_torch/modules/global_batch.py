@@ -22,6 +22,13 @@ here what the slice is a part of:
 
 A draw whose shape does not depend on the batch (the sampled softmax's
 candidates) needs only the generator that every rank shares.
+
+`sharded_rows(...)` is the counterpart over 'model': a module applied to
+this rank's row shard of a table (ItrMLP's MLP over its whole tables,
+`update_embeddings`) stands for the module over the whole table, so
+inside it `batch_moments` takes the statistics of the table's REAL rows,
+this shard's summed over the group: the pad rows that make the table
+split evenly enter no mean or variance. It draws nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +49,16 @@ class DataParallel(NamedTuple):
     all_sum: Callable[[torch.Tensor], torch.Tensor]
 
 
-_current: Optional[DataParallel] = None
+class ShardedRows(NamedTuple):
+    """This rank's row shard of a table of `rows` real rows: `real` [n]
+    marks the shard's real rows (False at pad rows), `all_sum` sums a
+    tensor over the shards' group."""
+    real: torch.Tensor
+    rows: int
+    all_sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+_current: Optional[DataParallel | ShardedRows] = None
 
 
 @contextmanager
@@ -56,6 +72,19 @@ def data_parallel(size: int, index: int, batch: int,
         raise ValueError(f"a batch of {batch} does not split over {size} "
                          "data ranks")
     outer, _current = _current, DataParallel(size, index, batch, all_sum)
+    try:
+        yield _current
+    finally:
+        _current = outer
+
+
+@contextmanager
+def sharded_rows(real: torch.Tensor, rows: int,
+                 all_sum: Callable[[torch.Tensor], torch.Tensor]):
+    """Inside: a batch norm over a row shard takes the statistics of the
+    whole table's `rows` real rows (`real` marks this shard's)."""
+    global _current
+    outer, _current = _current, ShardedRows(real, rows, all_sum)
     try:
         yield _current
     finally:
@@ -76,7 +105,7 @@ def rand(shape, generator: Optional[torch.Generator] = None,
     data-parallel context this rank's rows of the global batch's draw."""
     shape = tuple(shape)
     ctx = _current
-    if ctx is None:
+    if not isinstance(ctx, DataParallel):
         return torch.rand(shape, generator=generator, device=device)
     rows = _local_rows(ctx, shape[0])
     return torch.rand((ctx.batch,) + shape[1:], generator=generator,
@@ -85,11 +114,18 @@ def rand(shape, generator: Optional[torch.Generator] = None,
 
 def batch_moments(x: torch.Tensor):
     """(mean, biased variance) over dim 0, keepdim: inside a data-parallel
-    context, over the global batch."""
+    context, over the global batch; inside `sharded_rows`, over the whole
+    table's real rows."""
     ctx = _current
     if ctx is None:
         return (torch.mean(x, dim=0, keepdim=True),
                 torch.var(x, dim=0, keepdim=True, correction=0))
+    if isinstance(ctx, ShardedRows):
+        w = ctx.real.to(x.dtype)[:, None]
+        mean = ctx.all_sum(torch.sum(x * w, dim=0, keepdim=True)) / ctx.rows
+        var = ctx.all_sum(torch.sum(((x - mean) * w) ** 2, dim=0,
+                                    keepdim=True)) / ctx.rows
+        return mean, var
     _local_rows(ctx, x.shape[0])
     mean = ctx.all_sum(torch.sum(x, dim=0, keepdim=True)) / ctx.batch
     var = ctx.all_sum(torch.sum((x - mean) ** 2, dim=0, keepdim=True)) \

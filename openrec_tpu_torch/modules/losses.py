@@ -6,7 +6,8 @@ multi-negative losses of NBPR and WCML with their WARP rank weight
 (`:78-118`), WRMF's and PMF's pointwise MSE (`:121-128`), DLRM's
 `mse_loss` / `bce_loss` (`:131-140`) and the NCF family's
 `bce_logits_loss` (`:143-148`), and the sequence models' softmax losses
-(`:153-236`): `softmax_ce_loss` over the full catalog, TF's log-uniform
+(`:153-236`): `softmax_ce_loss` over the full catalog (and
+`table_softmax_ce` over an output layer), TF's log-uniform
 candidate law (`log_uniform_logprob`, `log_uniform_sample`) and
 `sampled_softmax_loss`. Sums stay sums and means stay means, as
 there. The hardest of K negatives is taken with `torch.amin` /
@@ -25,6 +26,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from openrec_tpu_torch.modules.embedding import embedding_lookup
 
 
 def _dot(a, b):
@@ -156,6 +159,16 @@ def softmax_ce_loss(logits, labels, reduction="mean"):
     return torch.mean(per) if reduction == "mean" else torch.sum(per)
 
 
+def table_softmax_ce(hidden, table, bias, labels):
+    """The mean `softmax_ce_loss` of the logits hidden . table^T + bias
+    (RNNRec's output layer). A view that carries its own `softmax_ce`
+    (a row-sharded output layer, `parallel.ShardedTable`) computes it
+    without the whole logits."""
+    if hasattr(table, "softmax_ce"):
+        return table.softmax_ce(hidden, bias, labels)
+    return softmax_ce_loss(hidden @ table.T + bias, labels)
+
+
 @functools.lru_cache(maxsize=64)
 def _f32_log(x: float) -> float:
     """log(x) computed in float32 (as JAX computes its constants), as a
@@ -204,7 +217,10 @@ def sampled_softmax_loss(item_table, item_bias, hidden, labels,
     from `generator` on the tables' device.
 
     item_table: [I, D]; item_bias: [I] or [I, 1]; hidden: [B, D];
-    labels: [B] int."""
+    labels: [B] int. The true and candidate rows are looked up
+    (`embedding_lookup`), so either table may be a view with its own
+    lookup (a row shard, `parallel.ShardedTable`, whose shape is the
+    catalog's)."""
     total_items = item_table.shape[0]
     dev = item_table.device
     labels = torch.as_tensor(labels, device=dev).long()
@@ -228,12 +244,13 @@ def sampled_softmax_loss(item_table, item_bias, hidden, labels,
             num_sampled / total_items, dtype=torch.float32, device=dev))
     else:
         raise ValueError(f"unknown candidate distribution {distribution!r}")
-    bias = item_bias.reshape(-1)
 
-    true_w = item_table.index_select(0, labels)                 # [B, D]
-    true_logit = torch.sum(hidden * true_w, dim=-1) + bias[labels]
-    sampled_w = item_table.index_select(0, sampled)             # [S, D]
-    sampled_logit = hidden @ sampled_w.T + bias[sampled]        # [B, S]
+    true_w = embedding_lookup(item_table, labels)                # [B, D]
+    true_logit = torch.sum(hidden * true_w, dim=-1) \
+        + embedding_lookup(item_bias, labels).reshape(-1)
+    sampled_w = embedding_lookup(item_table, sampled)            # [S, D]
+    sampled_logit = hidden @ sampled_w.T \
+        + embedding_lookup(item_bias, sampled).reshape(-1)       # [B, S]
 
     true_logit = true_logit - true_logq
     sampled_logit = sampled_logit - samp_logq.reshape(1, -1)

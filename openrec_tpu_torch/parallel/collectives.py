@@ -16,6 +16,11 @@ cotangent): the summed cotangents are divided by the group's size.
   data_sum           -> backward: all_reduce (no division: each rank's
                         loss is its own part of the global batch's, so
                         the cotangents of a global statistic add up)
+  replicated         -> forward: the identity; backward: all_reduce (a
+                        value the same on every rank entering work that
+                        each rank does on its own shard, whose cotangent
+                        is this rank's part of the whole: shard_map's
+                        pvary, Megatron's "copy to the parallel region")
 
 A group of one rank is the identity both ways, so a 1 x 1 mesh computes
 bit for bit what one device does. gloo (CPU) and NCCL (CUDA) both run
@@ -48,6 +53,19 @@ class _AllReduce(torch.autograd.Function):
 
 
 class _DataSum(_AllReduce):
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous().clone()
+        dist.all_reduce(ct, group=ctx.group)
+        return ct, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.clone()
+
     @staticmethod
     def backward(ctx, ct):
         ct = ct.contiguous().clone()
@@ -104,6 +122,25 @@ def data_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _DataSum.apply(x, group)
+
+
+def replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, the same on every rank of the group, as the input of
+    shard-local work (a row block of logits): the identity, whose backward
+    sums the ranks' partial cotangents into the whole one. At one rank the
+    identity both ways."""
+    if group_size(group) == 1:
+        return x
+    return _Replicated.apply(x, group)
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max over the group (lax.pmax), no gradient."""
+    if group_size(group) == 1:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

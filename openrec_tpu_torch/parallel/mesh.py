@@ -10,9 +10,10 @@ a mesh of devices; here every rank is a process of its own
   'model' - embedding rows: a table's rows split evenly over 'model', and
             lookups join the shards with a collective.
 
-A JAX `NamedSharding` becomes a placement rule, `Sharding(mesh, spec)`:
-`spec` names, per dimension of a leaf, the mesh dim it splits over (or
-None), and `block(shape)` says which block of the leaf this rank holds.
+A JAX `NamedSharding` becomes a placement rule, `Sharding(mesh, spec,
+shape)`: `spec` names, per dimension of a leaf, the mesh dim it splits
+over (or None), `shape` is the leaf's real global shape, and
+`block(shape)` says which block of the leaf this rank holds.
 NCCL joins CUDA ranks (the default); gloo joins CPU ranks, and CUDA
 ranks on request (`backend="gloo"`).
 """
@@ -121,9 +122,11 @@ def axis_group(mesh: DeviceMesh, axis: str):
 
 class Sharding(NamedTuple):
     """Which block of a leaf this rank holds: dimension i splits evenly
-    over the mesh dim spec[i] (None or missing: whole)."""
+    over the mesh dim spec[i] (None or missing: whole). `shape`: the
+    leaf's global shape before `pad_to` appended rows."""
     mesh: DeviceMesh
     spec: tuple
+    shape: tuple
 
     def axes(self):
         return [a for a in self.spec if a is not None]
@@ -157,18 +160,18 @@ class Sharding(NamedTuple):
                    for a in self.mesh.mesh_dim_names if a not in self.axes())
 
 
-def batch_sharding(mesh: DeviceMesh) -> Sharding:
+def batch_sharding(mesh: DeviceMesh, shape: tuple) -> Sharding:
     """The leading (batch) dim over 'data', the rest whole."""
-    return Sharding(mesh, (DATA_AXIS,))
+    return Sharding(mesh, (DATA_AXIS,), tuple(shape))
 
 
-def replicated(mesh: DeviceMesh) -> Sharding:
-    return Sharding(mesh, ())
+def replicated(mesh: DeviceMesh, shape: tuple) -> Sharding:
+    return Sharding(mesh, (), tuple(shape))
 
 
-def row_sharding(mesh: DeviceMesh) -> Sharding:
+def row_sharding(mesh: DeviceMesh, shape: tuple) -> Sharding:
     """Rows (dim 0) over 'model': embedding tables."""
-    return Sharding(mesh, (MODEL_AXIS, None))
+    return Sharding(mesh, (MODEL_AXIS, None), tuple(shape))
 
 
 # Shard every embedding table's rows over 'model', replicate dense towers:
@@ -193,7 +196,7 @@ def match_partition_rules(rules: Sequence, params: dict,
                 if re.search(pattern, name):
                     spec = tuple(ps)
                     break
-        out[name] = Sharding(mesh, spec)
+        out[name] = Sharding(mesh, spec, tuple(leaf.shape))
     return out
 
 

@@ -5,9 +5,14 @@ program over the GLOBAL batch; here every rank runs the same step on its
 data slice of it, and computes what that program computes:
 
   - every leaf a rule shards over 'model' (`DEFAULT_RULES`: the tables)
-    holds this rank's rows (`mesh.shard_model`), and the model's loss
-    reaches it through a `ShardedTable` view (`model.loss(batch,
-    tables=...)`); dense towers stay whole on every rank;
+    holds this rank's rows (`mesh.shard_model`), padded with zero rows
+    where the table does not split evenly, and the model reaches it
+    through a `ShardedTable` view (`table_views`) that knows the table's
+    real rows: in its loss (`model.loss(batch, tables=...)`: lookups, the
+    sequence models' vocabulary-parallel or sampled softmax), in its
+    `post_step` (censoring touches the ids in this rank's rows) and in
+    ItrMLP's `update_embeddings` (its batch norm over the real rows of
+    the whole table); dense towers stay whole on every rank;
   - the loss runs inside a data-parallel context (`modules/global_batch`,
     entered at more than one data rank): a random draw inside it (a
     dropout or corruption mask) is this slice's rows of the draw over the
@@ -34,11 +39,9 @@ data slice of it, and computes what that program computes:
     those of one program over the global batch.
 
 Every builder returns the loss of the global batch, the same on every
-rank. A model whose `post_step` does anything may not shard its tables
-(it would index them by global ids), nor may one whose loss reads them
-whole (`Recommender.table_views`: the sequence models, ItrMLP); a
-`post_step` reads the global batch and the replicated tables, so it does
-the same on every rank.
+rank. `post_step` reads the global batch, so every model rank does the
+same on the rows it holds. At one model rank no view is made: every
+table is whole and the model reads its parameters.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ from openrec_tpu_torch.parallel.mesh import (DATA_AXIS, DEFAULT_RULES,
                                              mesh_device, shard_model)
 from openrec_tpu_torch.training.optim import apply_updates
 from openrec_tpu_torch.training.sparse import (RowLayout,
-                                               make_sparse_train_step)
+                                               make_sparse_train_step,
+                                               post_step)
 
 
 def fold_in(seed: int, index: int) -> int:
@@ -148,16 +152,7 @@ def _sharded_names(shardings: dict) -> list:
             if sh.spec and sh.spec[0] == MODEL_AXIS]
 
 
-def _check_model(model, shardings: dict, mesh):
-    if _sharded_names(shardings) and not model.table_views:
-        raise NotImplementedError(
-            f"{type(model).__name__}'s loss reads its tables whole; "
-            "replicate them with rules=()")
-    if _sharded_names(shardings) and \
-            type(model).post_step is not Recommender.post_step:
-        raise NotImplementedError(
-            f"{type(model).__name__}.post_step indexes its tables by global "
-            "ids; shard them with rules=() (replicated)")
+def _check_model(model, mesh):
     if axis_size(mesh, DATA_AXIS) > 1 and model.loss_reduction is None \
             and type(model).batch_sums is Recommender.batch_sums:
         raise NotImplementedError(
@@ -165,10 +160,22 @@ def _check_model(model, shardings: dict, mesh):
             "does not split over data ranks; use a mesh of one data rank")
 
 
+def table_views(model, shardings: dict, mesh) -> dict:
+    """{name: ShardedTable} of the model's leaves sharded over 'model':
+    this rank's rows, with the table's real row count. Empty at one model
+    rank, where every leaf is whole."""
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return {}
+    params = model.params()
+    return {n: ShardedTable(params[n], mesh, shardings[n].shape[0])
+            for n in _sharded_names(shardings)}
+
+
 @contextmanager
 def full_params(model, shardings: dict, mesh):
     """Inside: the model's row-sharded leaves are whole (all_gathered over
-    'model'); after: its shards again. For scoring with `model.score`."""
+    'model', the pad rows cut off); after: its shards again. For scoring
+    with `model.score`."""
     group = axis_group(mesh, MODEL_AXIS)
     swapped = {}
     params = model.params()
@@ -176,7 +183,7 @@ def full_params(model, shardings: dict, mesh):
         for name in _sharded_names(shardings):
             p = params[name]
             swapped[name] = p.data
-            p.data = col.all_gather(p.data, group)
+            p.data = col.all_gather(p.data, group)[:shardings[name].shape[0]]
     try:
         yield model
     finally:
@@ -195,6 +202,7 @@ class MeshRowLayout(RowLayout):
 
     def __init__(self, mesh, shardings: dict):
         self.mesh = mesh
+        self.shardings = shardings
         self.sharded_names = set(_sharded_names(shardings))
         self.frac = 1.0 / axis_size(mesh, DATA_AXIS)
         self.shard = axis_index(mesh, MODEL_AXIS)
@@ -216,6 +224,9 @@ class MeshRowLayout(RowLayout):
     def reduce(self, grads):
         return _reduce_data(grads, self.mesh)
 
+    def views(self, model):
+        return table_views(model, self.shardings, self.mesh)
+
     def objective(self, model, total, aux):
         return data_parallel_objective(model, total, aux, self.frac)
 
@@ -228,8 +239,7 @@ def _dense_step(model, tx, mesh, shardings, opt_state, generator, local,
     frac = 1.0 / axis_size(mesh, DATA_AXIS)
     params = model.params()
     names = list(params)
-    views = {n: ShardedTable(params[n], mesh)
-             for n in _sharded_names(shardings)}
+    views = table_views(model, shardings, mesh)
     with global_batch_of(mesh, global_batch):
         total, aux = model.loss(local, tables=views or None,
                                 generator=generator)
@@ -244,7 +254,7 @@ def _dense_step(model, tx, mesh, shardings, opt_state, generator, local,
     with torch.no_grad():
         updates, opt_state = tx.update(grads, opt_state, params)
         apply_updates(params, updates)
-        model.post_step(global_batch)
+        post_step(model, global_batch, views)
     parts = _reduce_data(
         [objective.detach()] + [_slice_part(v, sums.get(k), frac).detach()
                                 for k, v in aux.items()], mesh)
@@ -264,7 +274,7 @@ def make_parallel_train_step(model, tx, mesh, rules=DEFAULT_RULES):
 
     def init_fn():
         shardings.update(shard_model(model, mesh, rules))
-        _check_model(model, shardings, mesh)
+        _check_model(model, mesh)
         return model.params(), tx.init(model.params()), dict(shardings)
 
     def local_step(opt_state, local: dict, global_batch: dict, generator):
@@ -329,7 +339,7 @@ def make_parallel_sparse_train_step(model, table_specs, mesh,
 
     def init_fn():
         shardings.update(shard_model(model, mesh, rules))
-        _check_model(model, shardings, mesh)
+        _check_model(model, mesh)
         init, inner["step"] = make_sparse_train_step(
             model, table_specs, layout=MeshRowLayout(mesh, shardings),
             **hyper)

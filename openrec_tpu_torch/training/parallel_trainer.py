@@ -18,10 +18,16 @@ sampled candidates are those of one program over the global batch.
 (`rank_generator`, JAX's r_sample folded with the shard index), which
 only samples.
 
+`tables()` gives the model's views of its row-sharded tables
+(`parallel.table_views`): `train(update_interval=)` hands them to
+ItrMLP's `update_embeddings` by default, and a rank serves its shard
+with `model.serving_tables(trainer.tables())`.
+
 Differences from the JAX package's, by design of the one-process-per-rank
-layout: `evaluate` runs the whole eval stream on every rank, with the
-row-sharded leaves all_gathered for the duration (`full_params`); console
-and JSONL lines come from rank 0 only.
+layout: `evaluate` and `evaluate_temporal` run the whole eval stream on
+every rank, with the row-sharded leaves all_gathered for the duration,
+pad rows cut off (`full_params`); console and JSONL lines come from rank
+0 only.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from openrec_tpu_torch.parallel.mesh import (DEFAULT_RULES, mesh_device,
                                              replicated)
 from openrec_tpu_torch.parallel.train import (
     full_params, gather_batch, make_parallel_sparse_train_step,
-    make_parallel_train_step, rank_generator, shared_generator)
+    make_parallel_train_step, rank_generator, shared_generator, table_views)
 from openrec_tpu_torch.training.optim import lazy_adam
 from openrec_tpu_torch.training.trainer import Trainer
 
@@ -94,6 +100,11 @@ class ParallelTrainer(Trainer):
     def rank(self) -> int:
         return dist.get_rank()
 
+    def tables(self) -> dict:
+        """{name: ShardedTable} of the model's row-sharded tables on this
+        rank (empty at one model rank)."""
+        return table_views(self.model, self.shardings, self.mesh)
+
     # ------------------------------------------------------------------ #
 
     def _step_body(self, batch: dict):
@@ -133,6 +144,11 @@ class ParallelTrainer(Trainer):
         with full_params(self.model, self.shardings, self.mesh):
             return super().evaluate(eval_sampler, *args, **kwargs)
 
+    def evaluate_temporal(self, eval_sampler, *args, **kwargs) -> dict:
+        """The Trainer's next-item evaluation, as `evaluate`."""
+        with full_params(self.model, self.shardings, self.mesh):
+            return super().evaluate_temporal(eval_sampler, *args, **kwargs)
+
     def _log(self, msg, color=None):
         if self.rank == 0:
             super()._log(msg, color)
@@ -150,7 +166,7 @@ class ParallelTrainer(Trainer):
         params = self.params
         out = {}
         for key, leaf in flatten_tree(tree).items():
-            out[key] = replicated(self.mesh)
+            out[key] = replicated(self.mesh, tuple(leaf.shape))
             for name, sh in self.shardings.items():
                 if (key.endswith("/" + name)
                         or key.endswith("/" + _path_repr(name))) \

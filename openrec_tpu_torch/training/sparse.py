@@ -423,10 +423,25 @@ class RowLayout:
         """Gradients summed over the data ranks."""
         return grads
 
+    def views(self, model) -> dict:
+        """{name: view} of the model's row-sharded tables, for its loss
+        (those the step does not gather) and its `post_step`: none on
+        one device."""
+        return {}
+
     def objective(self, model, total, aux):
         """The loss whose gradients, summed over the data ranks, are the
         global batch's."""
         return total
+
+
+def post_step(model, batch: dict, views: dict) -> None:
+    """`model.post_step(batch)`, handed the views of its row-sharded
+    tables where there are any."""
+    if views:
+        model.post_step(batch, tables=views)
+    else:
+        model.post_step(batch)
 
 
 def masked_gather(table: torch.Tensor, ids, lo: int) -> torch.Tensor:
@@ -547,10 +562,11 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
                 for path in specs}
         dense = _split_dense(params)
         # 3) the loss over the gathered views and the dense parameters
-        views = {names[path]: (
+        sharded = layout.views(model)
+        views = {**sharded, **{names[path]: (
             SubTable(uids[path], rows[path]) if hashed[path] is None
             else HashSubTable(uids[path], rows[path], rounds=hashed[path]))
-            for path in specs}
+            for path in specs}}
         total, aux = model.loss(batch, tables=views, generator=generator)
         loss = layout.objective(model, total, aux)
         leaves = list(rows.values()) + list(dense.values())
@@ -599,7 +615,8 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
             updates, dense_state = dense_tx.update(dense_grads,
                                                    state["dense"], dense)
             apply_updates(dense, updates)
-            model.post_step(batch if ids_batch is None else ids_batch)
+            post_step(model, batch if ids_batch is None else ids_batch,
+                      sharded)
         return ({"sparse": SparseAdamState(count, sparse_state.mu,
                                            sparse_state.nu),
                  "dense": dense_state}, loss.detach())

@@ -144,6 +144,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
 
+    def tables(self) -> dict:
+        """{name: view} of the model's row-sharded tables: none on one
+        device (`ParallelTrainer` gives a rank's)."""
+        return {}
+
     def _step_body(self, batch: dict):
         """One optimizer step on a batch of device tensors; returns the
         total loss and the aux dict, detached, on the device."""
@@ -447,7 +452,7 @@ class Trainer:
         update_interval/update_fn: every update_interval iterations (after
           the call's loss is recorded, before save and eval) call
           update_fn(), by default `model.update_embeddings` (ItrMLP's
-          table update); intervals should be multiples of
+          table update) over `tables()`; intervals should be multiples of
           steps_per_call. update_fn works IN PLACE on the model and takes
           no argument, where JAX's maps params to params
           (`openrec_tpu/training/trainer.py:565-566, 596-597`), as the
@@ -483,7 +488,8 @@ class Trainer:
                 raise ValueError("flat/stacked feeds need total_iter % "
                                  "steps_per_call == 0")
         if update_interval and update_fn is None:
-            update_fn = self.model.update_embeddings
+            def update_fn():
+                self.model.update_embeddings(tables=self.tables() or None)
 
         log(_color(f"[openrec_tpu_torch] start training "
                    f"{type(self.model).__name__} for {total_iter} "

@@ -2,10 +2,12 @@
 global-batch semantics, on a gloo mesh of 2 data x 2 model CPU ranks:
 
   - against JAX's `make_parallel_train_step` on a 2 x 2 mesh of its CPU
-    devices, two SGD steps: ItrMLP (a batch norm over the global batch),
-    UCML, WCML and VisualCML (`post_step` censors after the all_reduce),
-    CDL with the SDAE's dropout 0 (its tables row-sharded) and RNNRec with
-    the full softmax;
+    devices, two SGD steps, every table row-sharded over the two model
+    ranks by the default rules on both sides: ItrMLP (a batch norm over
+    the global batch), UCML, WCML and VisualCML (`post_step` censors each
+    shard's rows after the all_reduce), CDL with the SDAE's dropout 0,
+    RNNRec with the full softmax (vocabulary-parallel), GRU and LSTM, and
+    VanillaYouTubeRec without dropout;
   - against the port at one data rank (the flat `Trainer`, on the global
     batch, its generator seeded as the mesh's shared one), where the draws
     are torch's own: NeuMF, MLPRec and YouTubeRec with dropout, CDL with
@@ -16,7 +18,6 @@ global-batch semantics, on a gloo mesh of 2 data x 2 model CPU ranks:
   - the two data slices' dropout masks differ, and together are the mask
     one rank draws for the whole batch (a mask drawn with the slice's
     shape from a generator seeded alike on every rank repeats itself);
-  - a model whose loss reads its tables whole does not shard them;
   - the batch norm outside a data-parallel context is bit for bit the
     formula it had before.
 
@@ -38,6 +39,8 @@ from openrec_tpu import models as jmodels
 from openrec_tpu.data.pipeline import to_device
 from openrec_tpu.models.itr_mlp import ItrMLP as JItrMLP
 from openrec_tpu.models.sequence import RNNRec as JRNNRec
+from openrec_tpu.models.sequence import \
+    VanillaYouTubeRec as JVanillaYouTubeRec
 from openrec_tpu.parallel import batch_sharding, make_parallel_train_step
 from openrec_tpu.parallel.mesh import make_mesh, shard_params
 from openrec_tpu_torch import convert, models
@@ -65,23 +68,29 @@ FEATS = np.maximum(np.random.default_rng(3).normal(size=(ITEMS, 12)),
 CDL_FEATS = (np.random.default_rng(11).random((ITEMS, 20)) < 0.2).astype(
     np.float32)
 
-# against JAX: name -> (JAX model, port model class, positional widths,
-# keyword arguments, batch kind, port placement rules (None: the default))
+# against JAX, both sides under the default rules: name -> (model class,
+# positional widths, keyword arguments, batch kind)
 JAX_CASES = {
     "ItrMLP": ("ItrMLP", (6,), dict(user_dims=(10, 6), item_dims=(12, 6)),
-               "rating", ()),
+               "rating"),
     "UCML": ("UCML", (DIM, DIM), dict(margin=0.5, l2_weight=0.01),
-             "pairwise", ()),
-    "WCML": ("WCML", (DIM,), dict(margin=0.5, l2_weight=0.01), "npairwise",
-             ()),
+             "pairwise"),
+    "WCML": ("WCML", (DIM,), dict(margin=0.5, l2_weight=0.01), "npairwise"),
     "VisualCML": ("VisualCML", (DIM,), dict(mlp_units=(10,), margin=0.5,
-                                            l2_weight=0.01), "pairwise", ()),
+                                            l2_weight=0.01), "pairwise"),
     "CDL": ("CDL", (DIM,), dict(encoder_dims=(12,), l2_reconst=0.1, a=1.0,
                                 b=0.01, l2_weight=0.01, dropout=0.0),
-            "pointwise", None),
+            "pointwise"),
     "RNNRec": ("RNNRec", (), dict(total_items=ITEMS, dim_item_embed=DIM,
                                   max_seq_len=L, num_units=5),
-               "sequence", ()),
+               "sequence"),
+    "RNNRec-lstm": ("RNNRec", (), dict(total_items=ITEMS, dim_item_embed=DIM,
+                                       max_seq_len=L, num_units=5,
+                                       cell_type="lstm"),
+                    "sequence"),
+    "VanillaYouTubeRec": ("VanillaYouTubeRec", (), dict(
+        total_items=ITEMS, dim_item_embed=DIM, max_seq_len=L,
+        mlp_units=(16, ITEMS)), "sequence"),
 }
 # against the port at one data rank: name -> (class, positional widths,
 # keyword arguments, batch kind, rules, how the mesh steps)
@@ -165,8 +174,7 @@ def rules_kw(rules):
 # against JAX: make_parallel_train_step's host-fed step, SGD
 for name, c in inp["jax"].items():
     model = build(c["cls"], c["widths"], c["kw"], c["params"])
-    step, init = par.make_parallel_train_step(model, sgd, mesh,
-                                              **rules_kw(c["rules"]))
+    step, init = par.make_parallel_train_step(model, sgd, mesh)
     _, st, sh = init()
     gen = par.shared_generator(0, mesh)
     losses, auxes = [], []
@@ -253,17 +261,6 @@ for _ in range(2):
     st, _, _ = step(st, {"x": torch.ones(inp["probe_rows"], 4)}, gen)
 out["probe_masks"] = probe.masks
 
-# a loss that reads its tables whole may not shard them over 'model'
-refused = {}
-for name, model in (("RNNRec", models.RNNRec(64, 8, 5, 5, device="cpu")),
-                    ("ItrMLP", models.ItrMLP(32, 64, 6, device="cpu"))):
-    try:
-        par.make_parallel_train_step(model, sgd, mesh)[1]()
-        refused[name] = None
-    except NotImplementedError as e:
-        refused[name] = str(e)
-out["refused_whole_tables"] = refused
-
 pickle.dump(out, open(os.path.join(os.environ["CASES_OUT"],
                                    f"out-{dist.get_rank()}.pkl"), "wb"))
 '''
@@ -317,6 +314,8 @@ def _jax_model(cls, widths, kw):
         return JItrMLP(USERS, ITEMS, *widths, **kw)
     if cls == "RNNRec":
         return JRNNRec(**kw)
+    if cls == "VanillaYouTubeRec":
+        return JVanillaYouTubeRec(**kw)
     if cls in ("VisualCML", "CDL"):
         kw = dict(kw, item_features=FEATS if cls == "VisualCML"
                   else CDL_FEATS)
@@ -325,7 +324,7 @@ def _jax_model(cls, widths, kw):
 
 def _port_args(cls, widths, kw):
     """(positional widths, keyword arguments) of the port's constructor."""
-    if cls == "RNNRec" or cls == "YouTubeRec":
+    if cls in ("RNNRec", "VanillaYouTubeRec", "YouTubeRec"):
         return widths, kw
     if cls == "VisualCML":
         kw = dict(kw, item_features=FEATS)
@@ -410,15 +409,13 @@ def run(tmp_path_factory):
     inp = {"lr": LR, "jax": {}, "d1": {}, "probe_seed": 3, "probe_rows": 8}
     ref = {}
     mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    for i, (name, (cls, widths, kw, kind, rules)) in enumerate(
-            JAX_CASES.items()):
+    for i, (name, (cls, widths, kw, kind)) in enumerate(JAX_CASES.items()):
         jmodel = _jax_model(cls, widths, kw)
         params = _jax_params(jmodel)
         batches = _batches(kind, seed=20 + i)
         pwidths, pkw = _port_args(cls, widths, kw)
         inp["jax"][name] = dict(cls=cls, widths=pwidths, kw=pkw,
-                                params=_flat(params), batches=batches,
-                                rules=rules)
+                                params=_flat(params), batches=batches)
         tx = optax.sgd(LR)
         step_fn, _ = make_parallel_train_step(jmodel, tx, mesh)
         placed, _ = shard_params(params, mesh)
@@ -473,12 +470,14 @@ def _params_close(got, want):
 
 @pytest.mark.parametrize("name", list(JAX_CASES))
 def test_dp_step_matches_jax_global_batch(run, name):
-    """Two SGD steps at two data ranks (tables row-sharded over two model
-    ranks for CDL; replicated where `post_step` censors or the loss reads
-    the tables whole): the loss, aux and parameters of JAX's GSPMD step
-    over the global batch. ItrMLP's batch norm takes the global batch's
-    mean and variance; UCML / WCML / VisualCML censor the global batch's
-    rows after the all_reduce."""
+    """Two SGD steps at two data ranks, every table row-sharded over two
+    model ranks under the default rules, as in JAX: the loss, aux and
+    parameters of JAX's GSPMD step over the global batch. ItrMLP's batch
+    norm takes the global batch's mean and variance and reads its tables
+    through their views; UCML / WCML / VisualCML censor the global batch's
+    rows in each shard after the all_reduce; RNNRec's full softmax runs
+    vocabulary-parallel over its sharded out_weight / out_bias; the
+    YouTube model looks its items up in the sharded table."""
     _, ref, outs = run
     want_losses, want_aux, want_params = ref["jax_" + name]
     for o in outs:
@@ -527,17 +526,6 @@ def test_data_slices_draw_their_part_of_the_global_mask(run):
         for r in (1, 3):        # the model ranks of a data slice agree
             np.testing.assert_array_equal(outs[r]["probe_masks"][step],
                                           slices[r // 2])
-
-
-def test_a_loss_that_reads_its_tables_whole_does_not_shard(run):
-    """RNNRec and ItrMLP read their tables whole (a full softmax, a
-    lookup of the detached table), not through the step's sharded views:
-    on a mesh with two model ranks the default rules would hand them
-    their shard's rows, so their init refuses."""
-    _, _, outs = run
-    for o in outs:
-        for name, msg in o["refused_whole_tables"].items():
-            assert msg and "reads its tables whole" in msg, name
 
 
 def test_batch_norm_outside_the_context_is_the_old_formula():

@@ -113,7 +113,7 @@ out["lookup_outside"] = par.sharded_lookup(shard, T(c["outside"]),
 g = shard_of(c["gtable"], mesh).requires_grad_()
 (par.sharded_lookup(g, T(c["gids"]), mesh) ** 2).sum().backward()
 out["lookup_grad"] = g.grad.numpy()
-view = par.ShardedTable(shard, mesh)
+view = par.ShardedTable(shard, mesh, c["table"].shape[0])
 out["view_shape"] = tuple(view.shape)
 
 # B: scores and top-k (1 x 8)
