@@ -1,0 +1,8 @@
+"""batch.dispatch_ms: `serve.dispatch_ms`'s reading in an offline cell, which moves
+`batch_users_per_s`."""
+
+from portbench import harness
+
+
+def read(ctx):
+    return harness.reader("serve.dispatch_ms")(ctx)

@@ -1,0 +1,8 @@
+"""batch.mfu: `serve.mfu`'s reading in an offline cell, which moves
+`batch_users_per_s`."""
+
+from portbench import harness
+
+
+def read(ctx):
+    return harness.reader("serve.mfu")(ctx)
