@@ -390,6 +390,26 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
+KERNEL_COUNTERS = {"K1": "openrec.k1.launches", "K2": "openrec.k2.launches",
+                   "K3": "openrec.k3.launches"}
+
+
+def launch_counts(since=None):
+    """{kernel: launches counted by the port's tracer (`trace.py`)}, less
+    those of `since` (an earlier reading) where given."""
+    from openrec_tpu_torch import trace
+    return {k: trace.counter(name) - (since or {}).get(k, 0)
+            for k, name in KERNEL_COUNTERS.items()}
+
+
+def give_back(since):
+    """Take the launches counted after `since` off the counters: those of
+    a check, not of the path being counted."""
+    from openrec_tpu_torch import trace
+    for k, n in launch_counts(since).items():
+        trace.count(KERNEL_COUNTERS[k], -n)
+
+
 def kernel_name(symbol):
     """'bucket_max_f32_kernel<Lb1>' from a mangled kernel symbol such as
     _ZN12_GLOBAL__N_121bucket_max_f32_kernelILb1EEEv...: the last name of
@@ -781,18 +801,13 @@ def phase_serve(torch, port, cfg, rng, dev):
                 for _ in range(REQUESTS)]
     methods = METHODS
 
-    k3 = port.ops.topk.fused_score_topk
-    bt.bucket_max_scores.launches = 0
-    bt.bucket_max2_scores.launches = 0
-    k3.launches = 0
+    base = launch_counts()
     results = {m: [] for m in methods}
     for req in requests:
         for m in methods:
             results[m].append(_request(scorer, params, req, m))
             torch.cuda.synchronize()
-    launches = {"K1": bt.bucket_max_scores.launches,
-                "K2": bt.bucket_max2_scores.launches,
-                "K3": k3.launches}
+    launches = launch_counts(base)
     # serving answers through K1/K2; K3 is the training path's retrieval
     if launches != {"K1": REQUESTS, "K2": REQUESTS, "K3": 0}:
         fail(f"{cfg['name']}: kernel launches {launches}, want "
@@ -1029,10 +1044,7 @@ def phase_train(torch, port, seed, dev):
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
     cfg = TRAIN
-    counters = (bt.bucket_max_scores, bt.bucket_max2_scores,
-                tk.fused_score_topk)
-    for fn in counters:         # the path's run starts here
-        fn.launches = 0
+    base = launch_counts()      # the path's run starts here
     raw = citeulike_data(loaders, seed)
     U, I, D = raw["total_users"], raw["total_items"], cfg["dim"]
     train_ds = Dataset(raw["train_data"], U, I, seed=seed)
@@ -1157,7 +1169,7 @@ def phase_train(torch, port, seed, dev):
         answers = [tk.fused_score_topk(table_u[r].contiguous(), table_v,
                                        table_b, K) for r in reqs]
         torch.cuda.synchronize()
-        k3_launches = tk.fused_score_topk.launches
+        k3_launches = launch_counts(base)["K3"]
         checks = []
         for r, (vals, ids) in zip(reqs, answers):
             rows = table_u[r]
@@ -1209,8 +1221,7 @@ def phase_train(torch, port, seed, dev):
     feed.stop()
     out["speed"] = speed
     # ... and ends here: K3 ran on the 8 requests and nowhere else
-    out["launches"] = dict(zip(("K1", "K2", "K3"),
-                               (fn.launches for fn in counters)))
+    out["launches"] = launch_counts(base)
     if out["launches"] != {"K1": 0, "K2": 0, "K3": REQUESTS}:
         fail(f"training path launches {out['launches']}")
     return out
@@ -1493,6 +1504,7 @@ def dlrm_dedup_modes(torch, port, seed, dev, cfg, run, batches):
     finding); then `mode_timed_steps` timed steps each with wall ms/step,
     device busy ms, launches and idle share (torch.profiler), the hash
     mode's host checks and the gathered row count of one batch."""
+    from openrec_tpu_torch import trace
     from openrec_tpu_torch.training import sparse as tsparse
     n_det, n_timed = run["mode_det_steps"], run["mode_timed_steps"]
     out, ref = {}, None
@@ -1525,11 +1537,11 @@ def dlrm_dedup_modes(torch, port, seed, dev, cfg, run, batches):
         uids, valid, _ = tsparse._dedup(spec["embed_fused"](ids), dev, None)
         r["gathered_rows"] = int(uids.shape[0])
         r["unique_ids"] = int(valid.sum())
-        checks = tsparse._insert_hashed.host_checks
+        checks = trace.counter(trace.HOST_SYNCS)
         timed = batches[n_det:n_det + n_timed]
         _, ms = run_steps(torch, trainer, timed)
         r["host_checks_per_step"] = \
-            (tsparse._insert_hashed.host_checks - checks) / len(timed)
+            (trace.counter(trace.HOST_SYNCS) - checks) / len(timed)
         prof_it = iter(batches[n_det + n_timed:])
         profile = profile_device(torch, lambda: trainer.train_step(
             next(prof_it)), run["profiled_steps"], ms)
@@ -1680,7 +1692,7 @@ def zoo_serving(torch, port, name, model, dev, rng,
         table_b = bias(params, torch.arange(I, device=dev)).contiguous()
     # K1 and K2 against their plain version at the serving path's own
     # buckets; these launches are not the path's, so their counts go back
-    counted = (bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches)
+    counted = launch_counts()
     out["k1k2_vs_plain"] = {}
     for kname, m, top2 in (("K1", "pallas", False), ("K2", "pallas2", True)):
         bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
@@ -1695,7 +1707,7 @@ def zoo_serving(torch, port, name, model, dev, rng,
             fail(f"zoo {name} {kname}: id mismatches against its plain "
                  f"version that are not near-ties "
                  f"{out['k1k2_vs_plain'][kname]}")
-    bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = counted
+    give_back(counted)
 
     k3 = [tk.fused_score_topk(table_u[r].contiguous(), table_v, table_b, K)
           for r in requests]
@@ -1890,10 +1902,7 @@ def phase_zoo(torch, port, seed, dev, run=ZOO):
     from openrec_tpu_torch.data import Dataset, loaders
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
-                "K3": tk.fused_score_topk}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     raw = citeulike_data(loaders, seed)
     U, I = raw["total_users"], raw["total_items"]
     train_ds = Dataset(raw["train_data"], U, I, seed=seed)
@@ -1905,7 +1914,7 @@ def phase_zoo(torch, port, seed, dev, run=ZOO):
             out[name] = zoo_model(torch, port, name, train_ds, val, seed,
                                   dev, Path(log_dir), run)
             torch.cuda.empty_cache()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts(base)
     want = {"K1": sum(o["serving"]["calls"]["pallas"] for o in out.values()),
             "K2": sum(o["serving"]["calls"]["pallas2"]
                       for o in out.values()),
@@ -2374,10 +2383,7 @@ def phase_legacy(torch, port, seed, dev, run=LEGACY):
     from openrec_tpu_torch.data import Dataset, loaders
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
-                "K3": tk.fused_score_topk}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     t = time.perf_counter()
     raw = citeulike_data(loaders, seed)
     U, I = raw["total_users"], raw["total_items"]
@@ -2394,7 +2400,7 @@ def phase_legacy(torch, port, seed, dev, run=LEGACY):
             out[name] = legacy_run(torch, port, name, train_ds, val_ds, val,
                                    features, seed, dev, Path(log_dir), run)
             torch.cuda.empty_cache()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts(base)
     want = {kname: sum(out[n]["serving"]["calls"][m]
                        for n in LEGACY_SERVED)
             for kname, m in (("K1", "pallas"), ("K2", "pallas2"),
@@ -2601,10 +2607,7 @@ def phase_visual(torch, port, seed, dev, run=VISUAL):
     from openrec_tpu_torch.data import Dataset, loaders
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
-                "K3": tk.fused_score_topk}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     t = time.perf_counter()
     data = tradesy_data(loaders, seed, run)
     U, I = data["total_users"], data["total_items"]
@@ -2625,7 +2628,7 @@ def phase_visual(torch, port, seed, dev, run=VISUAL):
             out[name] = visual_run(torch, port, name, data, train_ds, val,
                                    feats_card, seed, dev, Path(log_dir), run)
             torch.cuda.empty_cache()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts(base)
     calls = {"K1": "pallas", "K2": "pallas2", "K3": "k3"}
     want = {kname: sum(out[n]["serving"]["calls"][m] for n in VISUAL_MODELS)
             for kname, m in calls.items()}
@@ -2957,16 +2960,14 @@ def sequence_serving(torch, name, model, test_ds, joins, dev):
         tie = diff & near(ms.gather(1, ids.long()), ref_v)
         bad_model += int((diff & ~tie).sum())
         ties_model += int(tie.sum())
-        counted = (bt.bucket_max_scores.launches,
-                   bt.bucket_max2_scores.launches)
+        counted = launch_counts()
         for kname, m, top2 in (("K1", "pallas", False),
                                ("K2", "pallas2", True)):
             bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
                                       per_bucket=2 if top2 else 1)
             plain[kname].append((bucket,) + compare_kernel(
                 torch, bt, u, table, bias, bucket, top2))
-        bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = \
-            counted
+        give_back(counted)
         out["requests"] += 1
         out["users"] += int(valid.sum())
     n = out["users"] * K
@@ -3150,10 +3151,7 @@ def phase_sequence(torch, port, seed, dev, run=SEQUENCE):
     from openrec_tpu_torch.data import Dataset, loaders
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
-                "K3": tk.fused_score_topk}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     t = time.perf_counter()
     data = lastfm_data(loaders, seed, run)
     U, I = data["total_users"], data["total_items"]
@@ -3176,7 +3174,7 @@ def phase_sequence(torch, port, seed, dev, run=SEQUENCE):
               f"{out[name]['host_fed']['test']['Recall@100']:.4f}, "
               f"popularity ranker {pop:.4f}", flush=True)
         torch.cuda.empty_cache()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts(base)
     calls = {"K1": "pallas", "K2": "pallas2", "K3": "k3"}
     want = {kname: sum(out[n]["serving"]["calls"][m]
                        for n in SEQUENCE_SERVED)
@@ -3382,16 +3380,14 @@ def itr_serving(torch, model, dev, rng):
         out["ms"]["k3"].append((time.perf_counter() - t) * 1e3)
         k3_checks.append(check_topk(torch, vals, ids, ex_v, ex_i, full,
                                     "itr ItrMLP K3"))
-        counted = (bt.bucket_max_scores.launches,
-                   bt.bucket_max2_scores.launches)
+        counted = launch_counts()
         for kname, m, top2 in (("K1", "pallas", False),
                                ("K2", "pallas2", True)):
             bucket = bt.choose_bucket(I, K, recall_target=TARGETS[m],
                                       per_bucket=2 if top2 else 1)
             plain[kname].append((bucket,) + compare_kernel(
                 torch, bt, u, table, bias, bucket, top2))
-        bt.bucket_max_scores.launches, bt.bucket_max2_scores.launches = \
-            counted
+        give_back(counted)
         out["requests"] += 1
     n = out["requests"] * BATCH * K
     out["recall_vs_exact"] = {m: h / n for m, h in hits.items()}
@@ -3437,10 +3433,7 @@ def itr_run(torch, port, seed, dev, log_dir, run):
     from openrec_tpu_torch.data import Dataset
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import topk as tk
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores,
-                "K3": tk.fused_score_topk}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     seconds, t = {}, time.perf_counter()
     data = netflix_data(seed, run)
     U, I, B = data["total_users"], data["total_items"], run["batch"]
@@ -3541,7 +3534,7 @@ def itr_run(torch, port, seed, dev, log_dir, run):
     out["serving"] = sv = itr_serving(torch, model, dev,
                                       np.random.default_rng(seed + 12))
     seconds["serving"] = time.perf_counter() - t
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts(base)
     want = {"K1": sv["calls"]["pallas"], "K2": sv["calls"]["pallas2"],
             "K3": sv["calls"]["k3"]}
     out["launches"] = launches
@@ -3691,13 +3684,11 @@ def parallel_retrieval(torch, par, bt, mesh, seed, dev, run):
                                          replace=False), device=dev)]
             for _ in range(REQUESTS)]
     out = {"a": {}, "b": {}}
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores}
     for kname, method in (("K1", "pallas"), ("K2", "pallas2")):
         pb, target = (2 if kname == "K2" else 1), TARGETS[method]
-        fn = counters[kname]
         launched, ms_sharded, ms_single = 0, [], []
         for u in reqs:
-            before = fn.launches
+            before = launch_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
             sv, si = par.sharded_pallas_topk(u, V, b, K, mesh,
@@ -3705,7 +3696,7 @@ def parallel_retrieval(torch, par, bt, mesh, seed, dev, run):
                                              per_bucket=pb)
             torch.cuda.synchronize()
             ms_sharded.append((time.perf_counter() - t) * 1e3)
-            launched += fn.launches - before
+            launched += launch_counts(before)[kname]
             t = time.perf_counter()
             rv, ri = bt.bucket_score_topk(u, V, b, K, recall_target=target,
                                           per_bucket=pb)
@@ -3733,13 +3724,12 @@ def parallel_retrieval(torch, par, bt, mesh, seed, dev, run):
         bp = torch.cat([b, b.new_full((pad,), -1e30)])
         for kname, method in (("K1", "pallas"), ("K2", "pallas2")):
             pb, target = (2 if kname == "K2" else 1), TARGETS[method]
-            fn = counters[kname]
             launched, recall, err, ties = 0, [], 0.0, 0
             for u in reqs:
-                before = fn.launches
+                before = launch_counts()
                 vals, ids = shard_merge(torch, par, bt, u, Vp, bp, m,
                                         target, pb, plain=False)
-                launched += fn.launches - before
+                launched += launch_counts(before)[kname]
                 full = u.float() @ V.float().T + b
                 ev, ei = par.embedding.topk_ordered(full, K)
                 pv, pi = shard_merge(torch, par, bt, u, Vp, bp, m, target,
@@ -4242,9 +4232,7 @@ def mp2_serve(torch, par, bt, model, views, request, full, mesh, k):
         par.sharded_pallas_topk(u, w, b, k, mesh,
                                 recall_target=TARGETS[method],
                                 per_bucket=2 if kname == "K2" else 1)
-    counters = {"K1": bt.bucket_max_scores, "K2": bt.bucket_max2_scores}
-    for fn in counters.values():
-        fn.launches = 0
+    base = launch_counts()
     out = {}
     for kname, method in methods:
         pb, target = (2 if kname == "K2" else 1), TARGETS[method]
@@ -4254,7 +4242,7 @@ def mp2_serve(torch, par, bt, model, views, request, full, mesh, k):
                                             recall_target=target,
                                             per_bucket=pb)
         sync()
-        r = {"launches": counters[kname].launches, "shard_rows":
+        r = {"launches": launch_counts(base)[kname], "shard_rows":
              int(w.shape[0]), "ms": (time.perf_counter() - t) * 1e3,
              "target": target}
         if full is not None:

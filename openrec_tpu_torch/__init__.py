@@ -68,6 +68,11 @@ NCCL or gloo, row-sharded lookups, K1/K2 retrieval per shard, sharded
 eval, data-parallel dense and sparse steps, per-rank checkpoints in the
 JAX package's format, `ParallelTrainer`, the multi-rank dry run). Every
 module of the JAX package now has its counterpart here.
+
+Beside them, the port's own tracing (`trace.py`): spans in the scorer,
+the training step and the feed, which are `torch.profiler` annotations
+while a profiler records, and counters of kernel launches, host waits
+and unique rows a step.
 """
 
 __version__ = "0.1.0"

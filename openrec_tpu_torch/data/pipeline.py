@@ -18,6 +18,7 @@ import threading
 import numpy as np
 import torch
 
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.device import resolve_device
 
 
@@ -115,14 +116,16 @@ def to_device(batch: dict, device=None) -> dict:
 
 def device_iterator(batches, device=None, prefetch: int = 2):
     """Iterate batches as tensors on `device`, keeping `prefetch` copies in
-    flight so host->device copies overlap with compute."""
+    flight so host->device copies overlap with compute. The copies issued
+    for each batch taken sit in the span `openrec.feed.next`."""
     dev = resolve_device(device)
     buf = collections.deque()
     it = iter(batches)
     try:
         while True:
-            while len(buf) < prefetch:
-                buf.append(to_device(next(it), dev))
+            with trace.span("openrec.feed.next"):
+                while len(buf) < prefetch:
+                    buf.append(to_device(next(it), dev))
             yield buf.popleft()
     except StopIteration:
         while buf:

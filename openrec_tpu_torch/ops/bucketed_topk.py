@@ -12,8 +12,9 @@ id) pair is exact, and a true top-k item is missed only when two (K2:
 three) of them share a bucket.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/bucket_max.cu`,
-built at first use) and counts the launch in its `launches` attribute; on
-a CPU tensor it runs the plain version (`bucket_max_plain`), which the
+built at first use) and counts the launch in the counter
+`openrec.k1.launches` or `openrec.k2.launches` (`trace.py`); on a CPU
+tensor it runs the plain version (`bucket_max_plain`), which the
 tests hold against the JAX package and `chip_smoke.py` holds against the
 kernel on the card. bf16 tables take the tensor-core route
 (`bucket_max_mma`: mma.sync fed by a cp.async ring; `mma_plan` sizes it),
@@ -37,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.ops.ordered_topk import topk_ordered
 
 _LANES = 128                     # bucket stride of the strided layout
@@ -309,7 +311,7 @@ def bucket_max_scores(user_vecs, item_table, item_bias, bucket: int = 128):
     if user_vecs.device.type == "cpu":
         return bucket_max_plain(user_vecs, item_table, item_bias, bucket)
     out = _launch(user_vecs, item_table, item_bias, bucket, top2=False)
-    bucket_max_scores.launches += 1
+    trace.count("openrec.k1.launches")
     return out
 
 
@@ -322,12 +324,8 @@ def bucket_max2_scores(user_vecs, item_table, item_bias, bucket: int = 256):
         return bucket_max_plain(user_vecs, item_table, item_bias, bucket,
                                 top2=True)
     out = _launch(user_vecs, item_table, item_bias, bucket, top2=True)
-    bucket_max2_scores.launches += 1
+    trace.count("openrec.k2.launches")
     return out
-
-
-bucket_max_scores.launches = 0
-bucket_max2_scores.launches = 0
 
 
 # ------------------------------------------------------------------- top-k
@@ -347,17 +345,19 @@ def bucket_score_topk(user_vecs, item_table, item_bias, k: int,
     """
     bucket = choose_bucket(item_table.shape[0], k, bucket, recall_target,
                            per_bucket)
-    if per_bucket == 2:
-        v1, i1, v2, i2 = bucket_max2_scores(user_vecs, item_table,
-                                            item_bias, bucket=bucket)
-        vals = torch.cat([v1, v2], dim=1)
-        ids = torch.cat([i1, i2], dim=1)
-    else:
-        vals, ids = bucket_max_scores(user_vecs, item_table, item_bias,
-                                      bucket=bucket)
-    # ties by candidate position, as lax.top_k over the candidates
-    top_vals, pos = topk_ordered(vals, k)
-    return top_vals, ids.gather(1, pos)
+    with trace.span("openrec.serve.score"):
+        if per_bucket == 2:
+            v1, i1, v2, i2 = bucket_max2_scores(user_vecs, item_table,
+                                                item_bias, bucket=bucket)
+            vals = torch.cat([v1, v2], dim=1)
+            ids = torch.cat([i1, i2], dim=1)
+        else:
+            vals, ids = bucket_max_scores(user_vecs, item_table, item_bias,
+                                          bucket=bucket)
+    with trace.span("openrec.serve.select"):
+        # ties by candidate position, as lax.top_k over the candidates
+        top_vals, pos = topk_ordered(vals, k)
+        return top_vals, ids.gather(1, pos)
 
 
 def choose_bucket(I: int, k: int, bucket: int = 128,

@@ -14,15 +14,17 @@ routes by the row's length:
   - a longer row (a whole large catalog, where the sort would cost more
     than the scores) takes `torch.topk`'s float path for k + 1,
     sorts the k by position and then stably by score (two sorts of
-    [B, k], always), and asks the host once a call whether a row ties
-    across the k-th place, ties zeros (+0.0 against -0.0) or holds a NaN;
-    only such rows, rare with float scores, are redone by the sort of
-    the whole row.
+    [B, k], always), and asks the host once a call (`trace.host_sync`)
+    whether a row ties across the k-th place, ties zeros (+0.0 against
+    -0.0) or holds a NaN; only such rows, rare with float scores, are
+    redone by the sort of the whole row.
 """
 
 from __future__ import annotations
 
 import torch
+
+from openrec_tpu_torch import trace
 
 # Rows up to this length are sorted whole (no host check).
 SHORT_ROW = 1 << 15
@@ -63,7 +65,10 @@ def topk_ordered(values: torch.Tensor, k: int):
     vals, perm = torch.sort(vals.gather(1, perm), dim=1, descending=True,
                             stable=True)
     pos = by_pos.gather(1, perm)
-    if bool(exact.any()):
+    tied = exact.any()
+    with trace.host_sync():
+        tied = bool(tied)
+    if tied:
         rows = exact.nonzero()[:, 0]
         pos = pos.index_copy(0, rows, _by_sort(x[rows], k))
         vals = x.gather(1, pos)

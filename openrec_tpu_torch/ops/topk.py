@@ -17,10 +17,11 @@ top k of u.V^T + b without writing the [B, I] scores, ordered by score
 descending and, among equal scores, by item id ascending (what lax.top_k
 gives). On a CUDA tensor it runs four stages (`_prepare`, `STAGES`): the
 K1 kernel as a bound pass, then `csrc/fused_topk.cu`'s threshold, filter
-and final sort (built at first use), and counts one launch of K3 in
-`fused_score_topk.launches`; on a CPU tensor it runs `fused_topk_plain`,
-a tiled running merge in plain PyTorch. `_threshold_topk_stages_plain`
-models the four stages on the CPU for the tests.
+and final sort (built at first use), and counts one launch of K3 in the
+counter `openrec.k3.launches` (`trace.py`); on a CPU tensor it runs
+`fused_topk_plain`, a tiled running merge in plain PyTorch.
+`_threshold_topk_stages_plain` models the four stages on the CPU for the
+tests.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.ops import bucketed_topk as bt
 from openrec_tpu_torch.ops.ordered_topk import topk_ordered
 
@@ -335,11 +337,10 @@ def fused_score_topk(user_vecs, item_table, item_bias, k: int):
     vals = torch.empty((B, k), device=dev)
     ids = torch.empty((B, k), device=dev, dtype=torch.int32)
     run(3, 3, (vals, ids))
-    fused_score_topk.launches += 1
+    trace.count("openrec.k3.launches")
     fused_score_topk.last_count = count
     return vals, ids
 
 
-fused_score_topk.launches = 0
 fused_score_topk.last_count = None
 

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.device import resolve_device
 from openrec_tpu_torch.metrics.chunked import chunked_dot_eval_metrics
 from openrec_tpu_torch.ops.bucketed_topk import bucket_score_topk
@@ -116,12 +117,16 @@ class CachedDotProductScorer:
                              f"{method!r}")
         if self._dirty:
             self.cache(params)
-        rows = self._rows(user_ids)
-        if method in ("pallas", "pallas2"):
-            return bucket_score_topk(
-                rows, self._V, self._b, k, recall_target=recall_target,
-                per_bucket=2 if method == "pallas2" else 1)
-        return topk_ordered(dot_scores(rows, self._V, self._b), k)
+        with trace.span("openrec.serve.topk"):
+            rows = self._rows(user_ids)
+            if method in ("pallas", "pallas2"):
+                return bucket_score_topk(
+                    rows, self._V, self._b, k, recall_target=recall_target,
+                    per_bucket=2 if method == "pallas2" else 1)
+            with trace.span("openrec.serve.score"):
+                scores = dot_scores(rows, self._V, self._b)
+            with trace.span("openrec.serve.select"):
+                return topk_ordered(scores, k)
 
     @torch.no_grad()
     def eval_metrics(self, params, user_ids, pos_ids, excl_ids,

@@ -27,7 +27,7 @@ the flat sort above; `Columns`, one sort per column of a [B, T] id matrix;
 and `Hashed`, a sort-free slot table filled by parallel `scatter_reduce_`
 ("amin") insertion, whose lookups re-probe it (`HashSubTable`). Every mode
 trains the same trajectory, bit for bit; the hash mode asks the host once
-a step whether every id has landed (`_insert_hashed.host_checks`). A
+a step whether every id has landed (`trace.host_sync`). A
 `RowLayout` says which rows this process holds; the distribution layer
 (`parallel/train.py`) passes one for a row-sharded table.
 """
@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.training.optim import (_adam_alpha, adam,
                                               apply_updates)
 
@@ -218,7 +219,7 @@ def _insert_hashed(ids, rounds: int = 8):
     evicted, so every id lands within S rounds.
 
     `rounds` rounds run without looking at the host; then one host check
-    of `landed.all()` (counted in `_insert_hashed.host_checks`) and, only
+    of `landed.all()` (counted in `openrec.host_syncs`) and, only
     if some id has not landed, one round and one check at a time (the
     JAX package's `lax.while_loop`). `rounds_run` tells `hash_positions`
     how many probes reach every id. Slots hold the ids in SLOT ORDER;
@@ -248,15 +249,14 @@ def _insert_hashed(ids, rounds: int = 8):
         landed = round_fn(r, landed)
     r = min(max(rounds, 0), S)
     while r < S:
-        _insert_hashed.host_checks += 1
-        if bool(landed.all()):
+        done = landed.all()
+        with trace.host_sync():
+            done = bool(done)
+        if done:
             break
         landed = round_fn(r, landed)
         r += 1
     return slots, slots != _HASH_EMPTY, max(r, 1)
-
-
-_insert_hashed.host_checks = 0
 
 
 def hash_positions(slot_ids, ids, unroll: int = 8, rounds: int | None = None):
@@ -264,7 +264,7 @@ def hash_positions(slot_ids, ids, unroll: int = 8, rounds: int | None = None):
     sequence. With `rounds` (the table's `rounds_run`) exactly that many
     probes run and the host is not asked: every id present has landed by
     then. Without it, `unroll` probes run, then one host check (counted
-    in `hash_positions.host_checks`) per further probe. An id absent from
+    in `openrec.host_syncs`) per further probe. An id absent from
     the table gets some slot, its last probe (the JAX package's gets its
     S-th)."""
     S = int(slot_ids.shape[0])
@@ -286,15 +286,14 @@ def hash_positions(slot_ids, ids, unroll: int = 8, rounds: int | None = None):
         pos, found = probe(r, pos, found)
     r = n_probe
     while rounds is None and r < S:
-        hash_positions.host_checks += 1
-        if bool(found.all()):
+        done = found.all()
+        with trace.host_sync():
+            done = bool(done)
+        if done:
             break
         pos, found = probe(r, pos, found)
         r += 1
     return pos
-
-
-hash_positions.host_checks = 0
 
 
 class HashSubTable:
@@ -545,21 +544,25 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         sparse_state: SparseAdamState = state["sparse"]
         params = model.params()
         # 1) unique ids per table, at a size fixed by the batch's shape
-        uids, valid, hashed = {}, {}, {}
-        for path, extract in specs.items():
-            uids[path], valid[path], hashed[path] = _dedup(
-                extract(batch if ids_batch is None else ids_batch),
-                params[names[path]].device, id_cap)
+        with trace.span("openrec.train.dedup"):
+            uids, valid, hashed = {}, {}, {}
+            for path, extract in specs.items():
+                uids[path], valid[path], hashed[path] = _dedup(
+                    extract(batch if ids_batch is None else ids_batch),
+                    params[names[path]].device, id_cap)
+                trace.count("openrec.train.id_slots", valid[path].numel())
+                trace.count_device("openrec.train.unique_rows", valid[path])
         # 2) gathered rows: fresh leaves, the tables stay out of the graph
         # (tables where some ids have no row here: a hash table's empty
         # slots, a sharded table's rows on other ranks)
         partial = {path: hashed[path] is not None
                    or layout.sharded(names[path]) for path in specs}
-        rows = {path: layout.gather(names[path],
-                                    params[names[path]].detach(),
-                                    uids[path],
-                                    masked=partial[path]).requires_grad_()
-                for path in specs}
+        with trace.span("openrec.train.gather"):
+            rows = {path: layout.gather(names[path],
+                                        params[names[path]].detach(),
+                                        uids[path],
+                                        masked=partial[path])
+                    .requires_grad_() for path in specs}
         dense = _split_dense(params)
         # 3) the loss over the gathered views and the dense parameters
         sharded = layout.views(model)
@@ -567,54 +570,63 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
             SubTable(uids[path], rows[path]) if hashed[path] is None
             else HashSubTable(uids[path], rows[path], rounds=hashed[path]))
             for path in specs}}
-        total, aux = model.loss(batch, tables=views, generator=generator)
-        loss = layout.objective(model, total, aux)
+        with trace.span("openrec.train.forward"):
+            total, aux = model.loss(batch, tables=views, generator=generator)
+            loss = layout.objective(model, total, aux)
         leaves = list(rows.values()) + list(dense.values())
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = layout.reduce([torch.zeros_like(x) if g is None else g
-                               for x, g in zip(leaves, grads)])
+        with trace.span("openrec.train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = layout.reduce([torch.zeros_like(x) if g is None else g
+                                   for x, g in zip(leaves, grads)])
         row_grads = dict(zip(rows, grads[:len(rows)]))
         dense_grads = dict(zip(dense, grads[len(rows):]))
         with torch.no_grad():
-            # 4) keras-form Adam on the gathered rows
-            count = sparse_state.count + 1
-            alpha = _adam_alpha(count, learning_rate, b1, b2)
-            for path in specs:
-                g = row_grads[path]
-                table = params[names[path]]
-                v = valid[path][:, None].to(g.dtype)
-                at, drop = uids[path], None
-                if partial[path]:
-                    # a row this rank does not hold, or an empty hash
-                    # slot, is dropped: it adds -0.0, which leaves every
-                    # value as it was, to a row spread by position (no
-                    # hot row)
-                    lo, n_rows = layout.shard_range(names[path], table)
-                    local = at.long() - lo
-                    keep = (local >= 0) & (local < n_rows)
-                    if hashed[path] is not None:
-                        keep = keep & valid[path]
-                    at = torch.where(keep, local, torch.arange(
-                        local.shape[0], device=local.device) % n_rows)
-                    drop = ~keep[:, None]
+            # 4) keras-form Adam on the gathered rows, then the dense Adam
+            with trace.span("openrec.train.adam"):
+                count = sparse_state.count + 1
+                alpha = _adam_alpha(count, learning_rate, b1, b2)
+                deltas = {}
+                for path in specs:
+                    g = row_grads[path]
+                    table = params[names[path]]
+                    v = valid[path][:, None].to(g.dtype)
+                    at, drop = uids[path], None
+                    if partial[path]:
+                        # a row this rank does not hold, or an empty hash
+                        # slot, is dropped: it adds -0.0, which leaves
+                        # every value as it was, to a row spread by
+                        # position (no hot row)
+                        lo, n_rows = layout.shard_range(names[path], table)
+                        local = at.long() - lo
+                        keep = (local >= 0) & (local < n_rows)
+                        if hashed[path] is not None:
+                            keep = keep & valid[path]
+                        at = torch.where(keep, local, torch.arange(
+                            local.shape[0], device=local.device) % n_rows)
+                        drop = ~keep[:, None]
 
-                def delta(x):
-                    x = x * v
-                    return x if drop is None else x.masked_fill(drop, -0.0)
+                    def delta(x):
+                        x = x * v
+                        return x if drop is None \
+                            else x.masked_fill(drop, -0.0)
 
-                mu, nu = sparse_state.mu[path], sparse_state.nu[path]
-                mu_old = mu.index_select(0, at)
-                nu_old = nu.index_select(0, at)
-                mu_rows = b1 * mu_old + (1 - b1) * g
-                nu_rows = b2 * nu_old + (1 - b2) * g * g
-                step = -alpha * mu_rows / (torch.sqrt(nu_rows) + eps)
-                # 5) deltas added back in place; pads add zero
-                table.index_add_(0, at, delta(step))
-                mu.index_add_(0, at, delta(mu_rows - mu_old))
-                nu.index_add_(0, at, delta(nu_rows - nu_old))
-            updates, dense_state = dense_tx.update(dense_grads,
-                                                   state["dense"], dense)
-            apply_updates(dense, updates)
+                    mu, nu = sparse_state.mu[path], sparse_state.nu[path]
+                    mu_old = mu.index_select(0, at)
+                    nu_old = nu.index_select(0, at)
+                    mu_rows = b1 * mu_old + (1 - b1) * g
+                    nu_rows = b2 * nu_old + (1 - b2) * g * g
+                    step = -alpha * mu_rows / (torch.sqrt(nu_rows) + eps)
+                    deltas[path] = (at, delta(step), delta(mu_rows - mu_old),
+                                    delta(nu_rows - nu_old))
+                updates, dense_state = dense_tx.update(dense_grads,
+                                                       state["dense"], dense)
+                apply_updates(dense, updates)
+            # 5) deltas added back in place; pads add zero
+            with trace.span("openrec.train.scatter"):
+                for path, (at, d_rows, d_mu, d_nu) in deltas.items():
+                    params[names[path]].index_add_(0, at, d_rows)
+                    sparse_state.mu[path].index_add_(0, at, d_mu)
+                    sparse_state.nu[path].index_add_(0, at, d_nu)
             post_step(model, batch if ids_batch is None else ids_batch,
                       sharded)
         return ({"sparse": SparseAdamState(count, sparse_state.mu,

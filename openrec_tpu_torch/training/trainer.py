@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from openrec_tpu_torch import checkpoint as ckpt_lib
+from openrec_tpu_torch import trace
 from openrec_tpu_torch.convert import flatten_tree, unflatten_like
 from openrec_tpu_torch.data.pipeline import device_iterator, to_device
 from openrec_tpu_torch.device import resolve_device
@@ -158,23 +159,27 @@ class Trainer:
             return loss, {"loss": loss}
         params = self.params
         names = list(params)
-        total, aux = self.model.loss(batch, generator=self.generator)
-        grads = torch.autograd.grad(total, [params[n] for n in names],
-                                    allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
-        grads = self.model.grad_transform(grads, batch)
+        with trace.span("openrec.train.forward"):
+            total, aux = self.model.loss(batch, generator=self.generator)
+        with trace.span("openrec.train.backward"):
+            grads = torch.autograd.grad(total, [params[n] for n in names],
+                                        allow_unused=True)
+            grads = {n: torch.zeros_like(params[n]) if g is None else g
+                     for n, g in zip(names, grads)}
+            grads = self.model.grad_transform(grads, batch)
         with torch.no_grad():
-            updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                     params)
-            apply_updates(params, updates)
+            with trace.span("openrec.train.adam"):
+                updates, self.opt_state = self.tx.update(
+                    grads, self.opt_state, params)
+                apply_updates(params, updates)
             self.model.post_step(batch)
         return total.detach(), {k: v.detach() for k, v in aux.items()}
 
     def train_step(self, batch: dict):
         """One optimizer step on a numpy/tensor batch dict; returns
         (loss, aux) on the device."""
-        loss, aux = self._step_body(to_device(batch, self.device))
+        with trace.span("openrec.train.step"):
+            loss, aux = self._step_body(to_device(batch, self.device))
         self.global_step += 1
         return loss, aux
 
@@ -586,9 +591,11 @@ class Trainer:
     def profile(self, train_batches, steps: int = 20,
                 trace_dir: Optional[str] = None):
         """Trace `steps` train steps with torch.profiler (CPU, and CUDA on
-        the card) after one untraced warm-up step; writes a Chrome trace
-        to `<trace_dir>/trace.json` (default: a directory under the
-        system's temporary directory). Returns the trace path."""
+        the card) after one untraced warm-up step, with the program's
+        spans on (`trace.py`: `openrec.train.step` and its phases beside
+        the kernels they launched); writes a Chrome trace to
+        `<trace_dir>/trace.json` (default: a directory under the system's
+        temporary directory). Returns the trace path."""
         from torch.profiler import ProfilerActivity, profile
         if trace_dir is None:
             trace_dir = os.path.join(tempfile.gettempdir(),
@@ -599,10 +606,14 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            for _ in range(steps):
-                self.train_step(next(it))
-            self._sync()
+        was = trace.enable(True)
+        try:
+            with profile(activities=activities) as prof:
+                for _ in range(steps):
+                    self.train_step(next(it))
+                self._sync()
+        finally:
+            trace.enable(was)
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, "trace.json")
         prof.export_chrome_trace(path)

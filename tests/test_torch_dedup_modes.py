@@ -19,7 +19,7 @@ import torch
 
 from openrec_tpu.models import DLRM as JDLRM
 from openrec_tpu.training import sparse as jsparse
-from openrec_tpu_torch import convert
+from openrec_tpu_torch import convert, trace
 from openrec_tpu_torch.models import DLRM
 from openrec_tpu_torch.training import Trainer
 from openrec_tpu_torch.training import sparse as tsparse
@@ -112,12 +112,12 @@ def test_hash_positions_equal_jax(unroll, rounds):
     slots, _, run = tsparse._insert_hashed(torch.from_numpy(ids), rounds=0)
     _eq(slots, ju)
     want = jsparse.hash_positions(ju, jnp.asarray(ids), unroll=unroll)
-    before = tsparse.hash_positions.host_checks
+    before = trace.counter("openrec.host_syncs")
     got = tsparse.hash_positions(slots, torch.from_numpy(ids),
                                  unroll=unroll,
                                  rounds=run if rounds else None)
     _eq(got, want)
-    checks = tsparse.hash_positions.host_checks - before
+    checks = trace.counter("openrec.host_syncs") - before
     assert (checks == 0) if rounds else (checks >= 1)
 
 
@@ -125,12 +125,12 @@ def test_insert_hashed_host_checks():
     """One host check after the unrolled rounds when every id landed;
     rounds=0 checks once a round until they have."""
     ids = torch.arange(64, dtype=torch.int32)
-    before = tsparse._insert_hashed.host_checks
+    before = trace.counter("openrec.host_syncs")
     _, _, run = tsparse._insert_hashed(ids, rounds=8)
-    assert tsparse._insert_hashed.host_checks - before == 1 and run == 8
-    before = tsparse._insert_hashed.host_checks
+    assert trace.counter("openrec.host_syncs") - before == 1 and run == 8
+    before = trace.counter("openrec.host_syncs")
     _, _, run = tsparse._insert_hashed(ids, rounds=0)
-    assert tsparse._insert_hashed.host_checks - before == run + 1
+    assert trace.counter("openrec.host_syncs") - before == run + 1
 
 
 def test_hash_quirks_recorded():

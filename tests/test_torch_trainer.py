@@ -22,7 +22,7 @@ from openrec_tpu.data.store import InteractionStore as JStore
 from openrec_tpu.models import BPR as JBPR
 from openrec_tpu.training import Trainer as JTrainer
 from openrec_tpu.training import optim as joptim
-from openrec_tpu_torch import convert
+from openrec_tpu_torch import convert, trace
 from openrec_tpu_torch.data import (EvaluationSampler, InteractionStore,
                                     PairwiseSampler)
 from openrec_tpu_torch.models import BPR
@@ -272,8 +272,15 @@ def test_profile_writes_a_trace(tmp_path):
     _, tt = _pair()
     path = tt.profile(iter(_batches(4)), steps=2, trace_dir=str(tmp_path))
     assert path.endswith("trace.json")
-    assert json.loads(open(path).read())["traceEvents"]
+    events = json.loads(open(path).read())["traceEvents"]
+    assert events
     assert tt.global_step == 3
+    # the program's spans sit in the trace, one step root a traced step,
+    # and the tracer is off again afterwards
+    steps = [e for e in events if e.get("name") == "openrec.train.step"
+             and e.get("cat") == "user_annotation"]
+    assert len(steps) == 2
+    assert not trace.enabled()
 
 
 def test_trainer_refuses_a_model_on_another_device():
