@@ -38,7 +38,14 @@ failure raises and exits non-zero:
      within rtol=atol=1e-5; an id may differ only where the two picks
      score within that tolerance (a different summation order); K2's
      second slot as id sets. Every user must have at least min(k, I) K3
-     candidates.
+     candidates. Then the sparse step's Adam kernel (`sparse_adam`)
+     against its plain version at dlrm-kaggle.train-zipf's shapes
+     (`SPARSE_ADAM`: one fused table of 33,762,577 x 16 fp32 rows,
+     210,127 live of 1,703,936 slots) in the flat dedup's layout (live
+     rows sorted at the front, int32, every pad repeating the last) and
+     the partial path's (live slots scattered, int64, each dead slot at a
+     random row): table, mu and nu torch.equal, and its launch counter,
+     zeroed first, reading one a call.
   3. the serving path at full width: BPR at the Amazon catalog of
      examples/serving_retrieval.py (99,473 users x 450,166 items x 64,
      bf16 serve tables) with random weights made from --seed by numpy and
@@ -61,7 +68,9 @@ failure raises and exits non-zero:
      with a bias), each at the bucket its method picks there, K3 at the
      CiteULike retrieval shape of phase 5, at the Amazon, Tradesy,
      LastFM and Netflix shapes, each of K3's four launches (K1 bound
-     pass, tau, filter, final) on its own too.
+     pass, tau, filter, final) on its own too; `sparse_adam` at
+     train-zipf's shapes in the flat layout, beside its plain version and
+     its bound (no library yardstick: no library op does this).
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
@@ -301,7 +310,8 @@ Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
 {"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
 an {"itr": ...} line, a {"parallel": ...} line, a {"kernels": [...]}
-line (K1, K2, K3; `launches`
+line (K1, K2, K3, and last `sparse_adam`, whose `launches` count phase
+2's calls and `launches_dlrm` phase 6's; `launches`
 from the serving path for K1/K2 and the training path for K3,
 `launches_zoo` from phase 7, `launches_legacy` from phase 8,
 `launches_visual` from phase 9, `launches_sequence` from phase 10,
@@ -391,15 +401,18 @@ def fail(msg):
 
 
 KERNEL_COUNTERS = {"K1": "openrec.k1.launches", "K2": "openrec.k2.launches",
-                   "K3": "openrec.k3.launches"}
+                   "K3": "openrec.k3.launches",
+                   "sparse_adam": "openrec.sparse_adam.launches"}
+# the serving kernels, whose launches the serving paths count and check
+SERVING_KERNELS = ("K1", "K2", "K3")
 
 
-def launch_counts(since=None):
-    """{kernel: launches counted by the port's tracer (`trace.py`)}, less
-    those of `since` (an earlier reading) where given."""
+def launch_counts(since=None, kernels=SERVING_KERNELS):
+    """{kernel: launches counted by the port's tracer (`trace.py`)} for
+    `kernels`, less those of `since` (an earlier reading) where given."""
     from openrec_tpu_torch import trace
-    return {k: trace.counter(name) - (since or {}).get(k, 0)
-            for k, name in KERNEL_COUNTERS.items()}
+    return {k: trace.counter(KERNEL_COUNTERS[k]) - (since or {}).get(k, 0)
+            for k in kernels}
 
 
 def give_back(since):
@@ -771,6 +784,88 @@ def phase_compare_k3(torch, tk, gen, dev):
         if bad:
             fail(f"K3 {name}: {bad} id mismatches that are not near-ties")
     return err_max, report
+
+
+def sparse_adam_inputs(torch, gen, dev, layout, cfg=None):
+    """One table's call of `sparse_adam_apply` at `cfg`'s shapes
+    (`SPARSE_ADAM`): table, mu, nu, rows, write mask, gradient, alpha.
+    layout "flat": the flat dedup's, the live rows sorted at the front
+    (int32) and every pad repeating the last; "partial": the partial
+    path's, live slots scattered over the cap (int64) and each dead slot
+    at a random row, live rows included."""
+    from openrec_tpu_torch.training.optim import _adam_alpha
+    cfg = cfg or SPARSE_ADAM
+    rows, D, cap, live = cfg["rows"], cfg["dim"], cfg["cap"], cfg["live"]
+    table = (torch.rand(rows, D, generator=gen, device=dev) - 0.5) * 0.1
+    mu = torch.randn(rows, D, generator=gen, device=dev) * 1e-3
+    nu = torch.rand(rows, D, generator=gen, device=dev) ** 4 * 1e-4
+    g = torch.randn(cap, D, generator=gen, device=dev) * 1e-2
+    picked = torch.randperm(rows, generator=gen, device=dev)[:live]
+    if layout == "flat":
+        picked = picked.sort().values
+        at = picked[-1:].repeat(cap)
+        at[:live] = picked
+        at = at.to(torch.int32)
+        write = torch.arange(cap, device=dev) < live
+    else:
+        slots = torch.randperm(cap, generator=gen, device=dev)[:live]
+        at = torch.randint(0, rows, (cap,), generator=gen, device=dev)
+        at[slots] = picked
+        write = torch.zeros(cap, dtype=torch.bool, device=dev)
+        write[slots] = True
+    alpha = _adam_alpha(torch.tensor(10, device=dev), cfg["lr"],
+                        cfg["b1"], cfg["b2"])
+    return table, mu, nu, at, write, g, alpha
+
+
+def sparse_adam_hyper(cfg=None):
+    cfg = cfg or SPARSE_ADAM
+    return cfg["b1"], cfg["b2"], cfg["eps"]
+
+
+def phase_compare_sparse_adam(torch, gen, dev):
+    """The sparse-Adam kernel against its plain version at train-zipf's
+    shapes, in the flat and the partial layout: table, mu and nu must be
+    torch.equal, and the live rows must have moved. Zeroes the kernel's
+    launch counter first; returns (launches counted, report)."""
+    from openrec_tpu_torch import trace
+    from openrec_tpu_torch.ops import sparse_adam as sa
+    counter = KERNEL_COUNTERS["sparse_adam"]
+    trace.count(counter, -trace.counter(counter))
+    report = []
+    for layout in ("flat", "partial"):
+        table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
+            torch, gen, dev, layout)
+        live = at[write].long()
+        before = table.index_select(0, live)
+        want = [t.clone() for t in (table, mu, nu)]
+        sa.sparse_adam_plain(*want, at, write, g, alpha, *sparse_adam_hyper())
+        sa.sparse_adam_apply(table, mu, nu, at, write, g, alpha,
+                             *sparse_adam_hyper())
+        torch.cuda.synchronize(dev)
+        line = dict(case=f"sparse_adam train-zipf {layout}",
+                    kernel="sparse_adam", rows=table.shape[0],
+                    D=table.shape[1], slots=at.shape[0],
+                    live=live.numel(), index=str(at.dtype).split(".")[-1],
+                    equal={n: torch.equal(x, w) for n, x, w in zip(
+                        ("table", "mu", "nu"), (table, mu, nu), want)},
+                    live_rows_moved=int((table.index_select(0, live)
+                                         != before).any(1).sum()))
+        print("compare", json.dumps(line), flush=True)
+        report.append(line)
+        if not all(line["equal"].values()):
+            fail(f"sparse_adam {layout}: kernel and plain version differ "
+                 f"{line['equal']}")
+        if line["live_rows_moved"] < live.numel() // 2:
+            fail(f"sparse_adam {layout}: only {line['live_rows_moved']} of "
+                 f"{live.numel()} live rows moved")
+        del table, mu, nu, want
+        torch.cuda.empty_cache()
+    launches = trace.counter(counter)
+    if launches != len(report):
+        fail(f"sparse_adam: {launches} launches counted for "
+             f"{len(report)} calls")
+    return launches, report
 
 
 # ------------------------------------------------------------ phase 3
@@ -1246,6 +1341,14 @@ DLRM_RUN = dict(flagship_batch=256, flagship_steps=20, batch=4096, lr=1e-3,
                 sparse_steps=300, dense_steps=20, profiled_steps=5,
                 untouched_sample=10_000, mode_det_steps=10,
                 mode_timed_steps=50)
+# dlrm-kaggle.train-zipf's sparse Adam (portbench/traffic/train-zipf.json,
+# batch 65,536): the 26 tables fused into one of 33,762,577 x 16 fp32
+# rows, 26 x 65,536 id slots, 210,127 of them live (the distinct rows a
+# batch of its Zipf(1.05) ids holds, `openrec.train.unique_rows`); Adam at
+# the sparse step's defaults
+SPARSE_ADAM = dict(rows=sum(CRITEO_COUNTS), dim=KAGGLE["m_spa"],
+                   cap=26 * 65_536, live=210_127, lr=1e-3, b1=0.9,
+                   b2=0.999, eps=1e-7)
 
 
 def roc_auc(pred, label):
@@ -4752,6 +4855,47 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
     return entry
 
 
+def time_sparse_adam(torch, gen, dev, launches, compare_report):
+    """`sparse_adam`'s entry of the kernels line: CUDA-event median ms,
+    device ms under the profiler, the plain version's ms and the bytes
+    bound, at train-zipf's shapes in the flat layout. `launches` is phase
+    2's count (`launches_dlrm` is filled in by phase 6)."""
+    from openrec_tpu_torch.ops import sparse_adam as sa
+    table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
+        torch, gen, dev, "flat")
+    args = (table, mu, nu, at, write, g, alpha, *sparse_adam_hyper())
+    ms = time_ms(torch, lambda: sa.sparse_adam_apply(*args))
+    profile = profile_device(torch, lambda: sa.sparse_adam_apply(*args), 10,
+                             ms)
+    device_ms = sum(t for name, t in
+                    profile["top_device_ms_per_call"].items()
+                    if "sparse_adam" in name)
+    plain_ms = time_ms(torch, lambda: sa.sparse_adam_plain(*args), runs=20)
+    clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+    (rows, D), cap = table.shape, at.shape[0]
+    live = int(write.sum())
+    # a live slot reads its index and its table, mu, nu and gradient rows
+    # and writes three rows; every slot reads its mask byte
+    nbytes = live * (7 * 4 * D + at.element_size()) + cap
+    entry = {"name": "sparse_adam (the sparse step's keras Adam, live rows "
+                     "written back)",
+             "route": "cuda",
+             "source": "openrec_tpu_torch/csrc/sparse_adam.cu",
+             "replaces": None, "replaces_function": None,
+             "launches": launches, "launches_dlrm": None,
+             "equal_to_plain": [c["equal"] for c in compare_report
+                                if c.get("kernel") == "sparse_adam"] or None,
+             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "card_after_timing": clocks, "profile": profile,
+             "shape": {"rows": rows, "D": D, "slots": cap, "live": live,
+                       "index": str(at.dtype).split(".")[-1]}}
+    print(f"sparse_adam train-zipf: {ms:.4f} ms (device {device_ms:.4f}, "
+          f"plain {plain_ms:.3f}, bound {entry['bound_ms']:.4f})",
+          flush=True)
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4814,6 +4958,7 @@ def main(argv=None):
     # A skipped phase prints nothing; what it would fill stays null.
     errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
     serve, kernels = {}, []
+    sparse_adam, sparse_adam_launches = None, None
     train = dlrm = zoo = legacy = visual = sequence = itr = parallel = None
 
     # phase 2
@@ -4821,6 +4966,9 @@ def main(argv=None):
         errs, compare_report = phase_compare(torch, bt, gen, dev)
         errs["K3"], k3_report = phase_compare_k3(torch, tk, gen, dev)
         compare_report += k3_report
+        sparse_adam_launches, sa_report = phase_compare_sparse_adam(
+            torch, gen, dev)
+        compare_report += sa_report
         torch.cuda.empty_cache()
 
     # phase 3
@@ -4838,6 +4986,10 @@ def main(argv=None):
         kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
                                      launches["K3"], compare_report))
         torch.cuda.empty_cache()
+        # joins the kernels line after the phases that fill K1-K3's counts
+        sparse_adam = time_sparse_adam(torch, gen, dev, sparse_adam_launches,
+                                       compare_report)
+        torch.cuda.empty_cache()
 
     # phase 5
     if 5 in phases:
@@ -4849,8 +5001,13 @@ def main(argv=None):
     # phase 6
     if 6 in phases:
         t6 = time.perf_counter()
+        before = launch_counts(kernels=("sparse_adam",))
         dlrm = phase_dlrm(torch, port, args.seed, dev)
         dlrm["phase_s"] = time.perf_counter() - t6
+        dlrm["sparse_adam_launches"] = launch_counts(
+            before, kernels=("sparse_adam",))["sparse_adam"]
+        if sparse_adam:
+            sparse_adam["launches_dlrm"] = dlrm["sparse_adam_launches"]
         print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s", flush=True)
         torch.cuda.empty_cache()
 
@@ -4925,6 +5082,8 @@ def main(argv=None):
                     parallel["retrieval"]["b"][f"m{m}_{kname}"]["launches"]
             entry["lastfm_shard2"]["launches"] = \
                 parallel["gloo_m2"]["launches"][kname]
+    if sparse_adam:
+        kernels.append(sparse_adam)
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy

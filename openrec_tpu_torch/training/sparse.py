@@ -13,10 +13,10 @@ gigabytes a step. Here a step costs O(batch):
   3. the model's loss runs with the table replaced by a `SubTable` view of
      the gathered rows (`model.loss(batch, tables={name: view})`), so
      autograd never allocates a gradient of the table's size;
-  4. Adam (the keras form, as `lazy_adam`) runs on the gathered rows and
-     their gathered moments;
-  5. the deltas of rows, mu and nu are added back IN PLACE with
-     `index_add_`, each pad's delta multiplied by zero.
+  4. Adam (the keras form, as `lazy_adam`) updates each table's live rows
+     and their moments IN PLACE (`ops.sparse_adam`: on the card one CUDA
+     kernel that reads and writes the live rows alone; a pad writes
+     nothing).
 
 The dense parameters (the MLPs) take `dense_tx`, by default optax's Adam
 (`optim.adam`) with the same hyperparameters, as in the JAX package.
@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from openrec_tpu_torch import trace
+from openrec_tpu_torch.ops.sparse_adam import sparse_adam_apply
 from openrec_tpu_torch.training.optim import (_adam_alpha, adam,
                                               apply_updates)
 
@@ -581,52 +582,27 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         row_grads = dict(zip(rows, grads[:len(rows)]))
         dense_grads = dict(zip(dense, grads[len(rows):]))
         with torch.no_grad():
-            # 4) keras-form Adam on the gathered rows, then the dense Adam
+            # the dense Adam, and the step size of the tables' Adam
             with trace.span("openrec.train.adam"):
                 count = sparse_state.count + 1
                 alpha = _adam_alpha(count, learning_rate, b1, b2)
-                deltas = {}
-                for path in specs:
-                    g = row_grads[path]
-                    table = params[names[path]]
-                    v = valid[path][:, None].to(g.dtype)
-                    at, drop = uids[path], None
-                    if partial[path]:
-                        # a row this rank does not hold, or an empty hash
-                        # slot, is dropped: it adds -0.0, which leaves
-                        # every value as it was, to a row spread by
-                        # position (no hot row)
-                        lo, n_rows = layout.shard_range(names[path], table)
-                        local = at.long() - lo
-                        keep = (local >= 0) & (local < n_rows)
-                        if hashed[path] is not None:
-                            keep = keep & valid[path]
-                        at = torch.where(keep, local, torch.arange(
-                            local.shape[0], device=local.device) % n_rows)
-                        drop = ~keep[:, None]
-
-                    def delta(x):
-                        x = x * v
-                        return x if drop is None \
-                            else x.masked_fill(drop, -0.0)
-
-                    mu, nu = sparse_state.mu[path], sparse_state.nu[path]
-                    mu_old = mu.index_select(0, at)
-                    nu_old = nu.index_select(0, at)
-                    mu_rows = b1 * mu_old + (1 - b1) * g
-                    nu_rows = b2 * nu_old + (1 - b2) * g * g
-                    step = -alpha * mu_rows / (torch.sqrt(nu_rows) + eps)
-                    deltas[path] = (at, delta(step), delta(mu_rows - mu_old),
-                                    delta(nu_rows - nu_old))
                 updates, dense_state = dense_tx.update(dense_grads,
                                                        state["dense"], dense)
                 apply_updates(dense, updates)
-            # 5) deltas added back in place; pads add zero
+            # 4) keras-form Adam on each table's live rows, in place; a
+            # pad, a row this rank does not hold and an empty hash slot
+            # write nothing
             with trace.span("openrec.train.scatter"):
-                for path, (at, d_rows, d_mu, d_nu) in deltas.items():
-                    params[names[path]].index_add_(0, at, d_rows)
-                    sparse_state.mu[path].index_add_(0, at, d_mu)
-                    sparse_state.nu[path].index_add_(0, at, d_nu)
+                for path in specs:
+                    table = params[names[path]]
+                    at, write = uids[path], valid[path]
+                    if partial[path]:
+                        lo, n_rows = layout.shard_range(names[path], table)
+                        at = at.long() - lo
+                        write = write & (at >= 0) & (at < n_rows)
+                    sparse_adam_apply(table, sparse_state.mu[path],
+                                      sparse_state.nu[path], at, write,
+                                      row_grads[path], alpha, b1, b2, eps)
             post_step(model, batch if ids_batch is None else ids_batch,
                       sharded)
         return ({"sparse": SparseAdamState(count, sparse_state.mu,

@@ -258,3 +258,126 @@ def test_trainer_sparse_tables_every_mode(mode):
     np.testing.assert_array_equal(finals[0][0], finals[1][0])
     for name in finals[0][1]:
         np.testing.assert_array_equal(finals[0][1][name], finals[1][1][name])
+
+
+# ---------------------------------------------- the tables' Adam, in place
+
+def _update_as_written_before(table, mu, nu, uids, valid, hashed, lo, g,
+                              alpha, b1, b2, eps):
+    """Phases 4 and 5 of the sparse step for one table as the step wrote
+    them before `ops.sparse_adam` took them over: both moments gathered at
+    every slot, Adam, each delta masked by `valid` (and a partial table's
+    dropped slots by a -0.0 fill at rows spread by position), three
+    `index_add_`. lo: the first global row of a partial table (a hash
+    table or a row block), None for a whole one."""
+    v = valid[:, None].to(g.dtype)
+    at, drop = uids, None
+    if lo is not None:
+        n_rows = table.shape[0]
+        local = at.long() - lo
+        keep = (local >= 0) & (local < n_rows)
+        if hashed:
+            keep = keep & valid
+        at = torch.where(keep, local, torch.arange(
+            local.shape[0], device=local.device) % n_rows)
+        drop = ~keep[:, None]
+
+    def delta(x):
+        x = x * v
+        return x if drop is None else x.masked_fill(drop, -0.0)
+
+    mu_old = mu.index_select(0, at)
+    nu_old = nu.index_select(0, at)
+    mu_rows = b1 * mu_old + (1 - b1) * g
+    nu_rows = b2 * nu_old + (1 - b2) * g * g
+    step = -alpha * mu_rows / (torch.sqrt(nu_rows) + eps)
+    table.index_add_(0, at, delta(step))
+    mu.index_add_(0, at, delta(mu_rows - mu_old))
+    nu.index_add_(0, at, delta(nu_rows - nu_old))
+
+
+class _RowBlock(tsparse.RowLayout):
+    """Block `block` of two equal row blocks of every table, as one rank of
+    a two-way model mesh holds it, with nothing joined: the other block's
+    rows gather as zeros and are not written."""
+
+    def __init__(self, block: int):
+        self.block = block
+
+    def sharded(self, name):
+        return True
+
+    def shard_range(self, name, table):
+        return self.block * table.shape[0], table.shape[0]
+
+
+# case: (dedup mode, fused tables, id_cap, row block or None)
+ADAM_CASES = {"flat": ("flat", True, None, None),
+              "columns": ("columns", True, None, None),
+              "mixed": ("mixed", True, None, None),
+              "hash": ("hash", True, None, None),
+              "flat-cap40": ("flat", True, 40, None),
+              "separate": (None, False, None, None),
+              "block0": ("flat", True, None, 0),
+              "block1": ("flat", True, None, 1)}
+
+
+@pytest.mark.parametrize("case", list(ADAM_CASES))
+def test_sparse_adam_is_the_steps_former_arithmetic(case, monkeypatch):
+    """Each of 3 steps calls `ops.sparse_adam_apply` once a table (its
+    plain version, on the CPU) with the write mask and rows the step
+    builds: table, mu and nu come out equal to the arithmetic it replaced,
+    the live slots name distinct rows, and no row outside them changes, to
+    the bit. In every dedup mode, with `id_cap` below the batch's 70-odd
+    uniques, on the separate tables and on either block of a two-block
+    `RowLayout`."""
+    mode, fused, id_cap, block = ADAM_CASES[case]
+    jp = JDLRM(**dict(KW, fused_tables=fused)).init(jax.random.PRNGKey(2))
+    tm = DLRM(**dict(KW, fused_tables=fused), device="cpu")
+    tm.load_params(convert.params_from_jax(_np(jp), device="cpu"))
+    layout, lo = None, None
+    if block is not None:
+        n = sum(LN_EMB) // 2
+        layout, lo = _RowBlock(block), block * n
+        tm.embed_fused = torch.nn.Parameter(
+            tm.embed_fused.detach()[lo:lo + n].clone())
+    elif mode == "hash":
+        lo = 0
+    specs = tsparse.dlrm_fused_table_spec(tm, mode=mode) if fused \
+        else tsparse.dlrm_table_specs(len(LN_EMB))
+    init, step = tsparse.make_sparse_train_step(
+        tm, specs, learning_rate=0.01, id_cap=id_cap, layout=layout)
+
+    dedups, calls = [], []
+    real_dedup, real_apply = tsparse._dedup, tsparse.sparse_adam_apply
+
+    def dedup(raw, device, cap):
+        out = real_dedup(raw, device, cap)
+        dedups.append(out)
+        return out
+
+    def apply(table, mu, nu, at, write, g, alpha, b1, b2, eps):
+        uids, valid, hashed = dedups.pop(0)
+        before = [t.clone() for t in (table, mu, nu)]
+        want = [t.clone() for t in (table, mu, nu)]
+        _update_as_written_before(*want, uids, valid, hashed is not None, lo,
+                                  g, alpha, b1, b2, eps)
+        real_apply(table, mu, nu, at, write, g, alpha, b1, b2, eps)
+        live = at[write].long()
+        assert live.unique().numel() == live.numel()
+        outside = torch.ones(table.shape[0], dtype=torch.bool)
+        outside[live] = False
+        for got, w, b in zip((table, mu, nu), want, before):
+            assert torch.equal(got, w)
+            assert torch.equal(got[outside].view(torch.int32),
+                               b[outside].view(torch.int32))
+        calls.append(int((~write).sum()))
+
+    monkeypatch.setattr(tsparse, "_dedup", dedup)
+    monkeypatch.setattr(tsparse, "sparse_adam_apply", apply)
+    state = init(tm.params())
+    for b in _batches(n=3, seed=11):
+        state, _ = step(state, {k: torch.as_tensor(v) for k, v in b.items()})
+    assert len(calls) == 3 * len(specs) and not dedups
+    # slots that write nothing, but where the uniques fill the cap
+    assert (sum(calls) == 0) == (id_cap is not None)

@@ -130,10 +130,11 @@ def test_cpu_tensors_count_no_kernel_launch():
     from openrec_tpu_torch import trace
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import fused_score_topk
+    from openrec_tpu_torch.ops.sparse_adam import sparse_adam_apply
 
     def launches():
         return tuple(trace.counter(f"openrec.{k}.launches")
-                     for k in ("k1", "k2", "k3"))
+                     for k in ("k1", "k2", "k3", "sparse_adam"))
     before = launches()
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
@@ -142,7 +143,12 @@ def test_cpu_tensors_count_no_kernel_launch():
     bt.bucket_max2_scores(u, v, None, bucket=2)
     bt.bucket_score_topk(u, v, None, 10, recall_target=0.99, per_bucket=2)
     fused_score_topk(u, v, None, 10)
-    assert launches() == before == (0, 0, 0)
+    mu, nu = torch.zeros_like(v), torch.zeros_like(v)
+    sparse_adam_apply(v, mu, nu, torch.tensor([4, 9, 0]),
+                      torch.tensor([True, True, False]), u,
+                      torch.tensor(1e-3), 0.9, 0.999, 1e-7)
+    assert mu[[4, 9]].any() and not mu[0].any()
+    assert launches() == before == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["PMF", "WRMF", "GMF", "UCML",
