@@ -44,7 +44,10 @@ failure raises and exits non-zero:
      210,127 live of 1,703,936 slots) in the flat dedup's layout (live
      rows sorted at the front, int32, every pad repeating the last) and
      the partial path's (live slots scattered, int64, each dead slot at a
-     random row): table, mu and nu torch.equal, and its launch counter,
+     random row), and at dlrm-dcnv2.train-multihot's (`SPARSE_ADAM_DCN`:
+     D 128, 714,574 live of 1,753,088 slots, the table's rows halved so
+     that kernel and plain version each hold a whole state) in the flat
+     layout: table, mu and nu torch.equal, and its launch counter,
      zeroed first, reading one a call.
   3. the serving path at full width: BPR at the Amazon catalog of
      examples/serving_retrieval.py (99,473 users x 450,166 items x 64,
@@ -70,7 +73,9 @@ failure raises and exits non-zero:
      LastFM and Netflix shapes, each of K3's four launches (K1 bound
      pass, tau, filter, final) on its own too; `sparse_adam` at
      train-zipf's shapes in the flat layout, beside its plain version and
-     its bound (no library yardstick: no library op does this).
+     its bound (no library yardstick: no library op does this), and
+     again at dlrm-dcnv2's whole 26,500,127 x 128 table (its `dcnv2`
+     entry).
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
@@ -825,25 +830,29 @@ def sparse_adam_hyper(cfg=None):
 
 def phase_compare_sparse_adam(torch, gen, dev):
     """The sparse-Adam kernel against its plain version at train-zipf's
-    shapes, in the flat and the partial layout: table, mu and nu must be
-    torch.equal, and the live rows must have moved. Zeroes the kernel's
-    launch counter first; returns (launches counted, report)."""
+    shapes, in the flat and the partial layout, and at dlrm-dcnv2's
+    (D 128, `SPARSE_ADAM_DCN_CHECK`: its rows halved to fit twice) in the
+    flat layout: table, mu and nu must be torch.equal, and the live rows
+    must have moved. Zeroes the kernel's launch counter first and checks
+    it reads one a call; returns (launches counted, report)."""
     from openrec_tpu_torch import trace
     from openrec_tpu_torch.ops import sparse_adam as sa
     counter = KERNEL_COUNTERS["sparse_adam"]
     trace.count(counter, -trace.counter(counter))
     report = []
-    for layout in ("flat", "partial"):
+    for cell, cfg, layout in (("train-zipf", SPARSE_ADAM, "flat"),
+                              ("train-zipf", SPARSE_ADAM, "partial"),
+                              ("dcnv2", SPARSE_ADAM_DCN_CHECK, "flat")):
         table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
-            torch, gen, dev, layout)
+            torch, gen, dev, layout, cfg)
         live = at[write].long()
         before = table.index_select(0, live)
         want = [t.clone() for t in (table, mu, nu)]
-        sa.sparse_adam_plain(*want, at, write, g, alpha, *sparse_adam_hyper())
-        sa.sparse_adam_apply(table, mu, nu, at, write, g, alpha,
-                             *sparse_adam_hyper())
+        hyper = sparse_adam_hyper(cfg)
+        sa.sparse_adam_plain(*want, at, write, g, alpha, *hyper)
+        sa.sparse_adam_apply(table, mu, nu, at, write, g, alpha, *hyper)
         torch.cuda.synchronize(dev)
-        line = dict(case=f"sparse_adam train-zipf {layout}",
+        line = dict(case=f"sparse_adam {cell} {layout}",
                     kernel="sparse_adam", rows=table.shape[0],
                     D=table.shape[1], slots=at.shape[0],
                     live=live.numel(), index=str(at.dtype).split(".")[-1],
@@ -854,12 +863,13 @@ def phase_compare_sparse_adam(torch, gen, dev):
         print("compare", json.dumps(line), flush=True)
         report.append(line)
         if not all(line["equal"].values()):
-            fail(f"sparse_adam {layout}: kernel and plain version differ "
-                 f"{line['equal']}")
+            fail(f"sparse_adam {cell} {layout}: kernel and plain version "
+                 f"differ {line['equal']}")
         if line["live_rows_moved"] < live.numel() // 2:
-            fail(f"sparse_adam {layout}: only {line['live_rows_moved']} of "
-                 f"{live.numel()} live rows moved")
-        del table, mu, nu, want
+            fail(f"sparse_adam {cell} {layout}: only "
+                 f"{line['live_rows_moved']} of {live.numel()} live rows "
+                 "moved")
+        del table, mu, nu, want, before, g
         torch.cuda.empty_cache()
     launches = trace.counter(counter)
     if launches != len(report):
@@ -1349,6 +1359,17 @@ DLRM_RUN = dict(flagship_batch=256, flagship_steps=20, batch=4096, lr=1e-3,
 SPARSE_ADAM = dict(rows=sum(CRITEO_COUNTS), dim=KAGGLE["m_spa"],
                    cap=26 * 65_536, live=210_127, lr=1e-3, b1=0.9,
                    b2=0.999, eps=1e-7)
+# dlrm-dcnv2.train-multihot's (portbench/configs/dlrm-dcnv2.json, batch
+# 8,192 of 214 ids): one fused table of 26,500,127 x 128 fp32 rows (32
+# float4 chunks a row), 1,753,088 id slots, 714,574 of them live
+# (`openrec.train.unique_rows` of its traced slice)
+SPARSE_ADAM_DCN = dict(SPARSE_ADAM, rows=26_500_127, dim=128,
+                       cap=8_192 * 214, live=714_574)
+# its check holds table, mu and nu twice (kernel and plain version): the
+# whole 40.7 GB state twice does not fit on an 80 GB card, so the check
+# halves the table's rows; the kernel's work depends on the slots, the
+# live rows and D alone
+SPARSE_ADAM_DCN_CHECK = dict(SPARSE_ADAM_DCN, rows=13_250_064)
 
 
 def roc_auc(pred, label):
@@ -4855,15 +4876,14 @@ def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
     return entry
 
 
-def time_sparse_adam(torch, gen, dev, launches, compare_report):
-    """`sparse_adam`'s entry of the kernels line: CUDA-event median ms,
-    device ms under the profiler, the plain version's ms and the bytes
-    bound, at train-zipf's shapes in the flat layout. `launches` is phase
-    2's count (`launches_dlrm` is filled in by phase 6)."""
+def time_sparse_adam_at(torch, gen, dev, cfg):
+    """One shape's timing of the sparse-Adam kernel in the flat layout:
+    CUDA-event median ms, device ms under the profiler, the plain
+    version's ms and the bytes bound."""
     from openrec_tpu_torch.ops import sparse_adam as sa
     table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
-        torch, gen, dev, "flat")
-    args = (table, mu, nu, at, write, g, alpha, *sparse_adam_hyper())
+        torch, gen, dev, "flat", cfg)
+    args = (table, mu, nu, at, write, g, alpha, *sparse_adam_hyper(cfg))
     ms = time_ms(torch, lambda: sa.sparse_adam_apply(*args))
     profile = profile_device(torch, lambda: sa.sparse_adam_apply(*args), 10,
                              ms)
@@ -4877,6 +4897,18 @@ def time_sparse_adam(torch, gen, dev, launches, compare_report):
     # a live slot reads its index and its table, mu, nu and gradient rows
     # and writes three rows; every slot reads its mask byte
     nbytes = live * (7 * 4 * D + at.element_size()) + cap
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "card_after_timing": clocks, "profile": profile,
+            "shape": {"rows": rows, "D": D, "slots": cap, "live": live,
+                      "index": str(at.dtype).split(".")[-1]}}
+
+
+def time_sparse_adam(torch, gen, dev, launches, compare_report):
+    """`sparse_adam`'s entry of the kernels line, at train-zipf's shapes
+    (`SPARSE_ADAM`), with a `dcnv2` entry at dlrm-dcnv2's whole table
+    (`SPARSE_ADAM_DCN`, D 128): each `time_sparse_adam_at`. `launches` is
+    phase 2's count (`launches_dlrm` is filled in by phase 6)."""
     entry = {"name": "sparse_adam (the sparse step's keras Adam, live rows "
                      "written back)",
              "route": "cuda",
@@ -4884,15 +4916,14 @@ def time_sparse_adam(torch, gen, dev, launches, compare_report):
              "replaces": None, "replaces_function": None,
              "launches": launches, "launches_dlrm": None,
              "equal_to_plain": [c["equal"] for c in compare_report
-                                if c.get("kernel") == "sparse_adam"] or None,
-             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-             "card_after_timing": clocks, "profile": profile,
-             "shape": {"rows": rows, "D": D, "slots": cap, "live": live,
-                       "index": str(at.dtype).split(".")[-1]}}
-    print(f"sparse_adam train-zipf: {ms:.4f} ms (device {device_ms:.4f}, "
-          f"plain {plain_ms:.3f}, bound {entry['bound_ms']:.4f})",
-          flush=True)
+                                if c.get("kernel") == "sparse_adam"] or None}
+    entry.update(time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM))
+    torch.cuda.empty_cache()
+    entry["dcnv2"] = time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM_DCN)
+    for name, t in (("train-zipf", entry), ("dcnv2", entry["dcnv2"])):
+        print(f"sparse_adam {name}: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
+              f"{t['bound_ms']:.4f})", flush=True)
     return entry
 
 

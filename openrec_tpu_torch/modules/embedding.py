@@ -6,12 +6,14 @@ and norm censoring (also in place, for a model's `post_step`). A table
 is a [num, dim] tensor (an `nn.Parameter` inside a model), or a view
 that carries its own method of a function's name, which the function
 resolves (`training.sparse.SubTable`'s `lookup`; a row shard,
-`parallel.ShardedTable`).
+`parallel.ShardedTable`). `embedding_bags` sums bags of rows (the
+multi-hot DLRM's sum pooling) in one `embedding_bag` call for all bags.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from openrec_tpu_torch.device import resolve_device
 
@@ -47,6 +49,23 @@ def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
     safe = ids.long().clamp(0, table.shape[0] - 1)
     return table.index_select(0, safe.reshape(-1)).reshape(
         *ids.shape, *table.shape[1:])
+
+
+def embedding_bags(table: torch.Tensor, ids,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Sums of rows `ids` [N] of `table` over bags: bag j holds
+    ids[offsets[j] : offsets[j + 1]] (the last runs to N; `offsets` an
+    int64 tensor on the ids' device); [len(offsets), D]. One
+    `embedding_bag` gathers and sums every bag, so the looked-up rows are
+    never written out. Out-of-range ids clamp as in `embedding_lookup`. A
+    gathered view (`training.sparse.SubTable`, `HashSubTable`) maps the
+    ids to its rows by its own `positions`."""
+    if hasattr(table, "positions"):
+        return F.embedding_bag(table.positions(ids), table.rows, offsets,
+                               mode="sum")
+    ids = torch.as_tensor(ids, device=table.device)
+    safe = ids.long().clamp(0, table.shape[0] - 1).reshape(-1)
+    return F.embedding_bag(safe, table, offsets, mode="sum")
 
 
 def censor_norm_(table: torch.Tensor, ids, eps: float = 0.1) -> torch.Tensor:

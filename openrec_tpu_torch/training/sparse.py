@@ -56,13 +56,17 @@ class SubTable:
         self.uids_sorted = uids_sorted    # [K] int32, sorted (with pads)
         self.rows = rows                  # [K, D]
 
-    def lookup(self, ids) -> torch.Tensor:
+    def positions(self, ids) -> torch.Tensor:
+        """Each id's row in the view, flattened."""
         ids = torch.as_tensor(ids, device=self.rows.device)
         pos = torch.searchsorted(
             self.uids_sorted,
             ids.to(self.uids_sorted.dtype).contiguous().reshape(-1))
-        pos = pos.clamp(0, self.rows.shape[0] - 1)
-        return self.rows.index_select(0, pos).reshape(
+        return pos.clamp(0, self.rows.shape[0] - 1)
+
+    def lookup(self, ids) -> torch.Tensor:
+        ids = torch.as_tensor(ids, device=self.rows.device)
+        return self.rows.index_select(0, self.positions(ids)).reshape(
             *ids.shape, *self.rows.shape[1:])
 
     @property
@@ -308,11 +312,15 @@ class HashSubTable:
         self.unroll = int(unroll)
         self.rounds = rounds
 
+    def positions(self, ids) -> torch.Tensor:
+        """Each id's row in the view, flattened."""
+        ids = torch.as_tensor(ids, device=self.rows.device)
+        return hash_positions(self.slot_ids, ids, unroll=self.unroll,
+                              rounds=self.rounds).reshape(-1)
+
     def lookup(self, ids) -> torch.Tensor:
         ids = torch.as_tensor(ids, device=self.rows.device)
-        pos = hash_positions(self.slot_ids, ids, unroll=self.unroll,
-                             rounds=self.rounds)
-        return self.rows.index_select(0, pos.reshape(-1)).reshape(
+        return self.rows.index_select(0, self.positions(ids)).reshape(
             *ids.shape, *self.rows.shape[1:])
 
     @property
@@ -368,8 +376,16 @@ def dlrm_fused_table_spec(model, columnwise: bool = False,
                       (e.g. 'hash4') sets both probe-round knobs to R.
     Every mode trains the same trajectory, bit for bit. The per-table
     offset ranges are disjoint and increasing, as 'columns' and 'mixed'
-    require."""
+    require; a multi-hot model (`DLRM(multi_hot=...)`, several columns
+    a table) breaks that, and those two modes refuse it. 'flat' and
+    'hash' take its ids as they are."""
     mode = "columns" if columnwise and mode is None else (mode or "flat")
+    if mode in ("columns", "mixed") and any(
+            s > 1 for s in (model.multi_hot or ())):
+        raise ValueError(
+            f"dedup mode {mode!r} needs one id column a table (disjoint, "
+            "increasing column ranges); a multi-hot DLRM's columns share "
+            "their table's range: use 'flat' or 'hash'")
     if mode.startswith("hash"):
         r = int(mode[4:]) if len(mode) > 4 else 8
         return {"embed_fused":

@@ -2,7 +2,7 @@
 plain version (`ops.sparse_adam.sparse_adam_plain`), on the card.
 
 Bars, all `torch.equal` of table, mu and nu: every call of 5 sparse DLRM
-steps in each dedup mode at D = 16, 20, 50, 64 and 100 (the kernel's
+steps in each dedup mode at D = 16, 20, 50, 64, 100 and 128 (the kernel's
 float4 route where D % 4 == 0, its scalar route at 50), on either block
 of a row-sharded layout, and direct calls with int32 and int64 rows, an
 unaligned gradient and one row that every pad repeats; one launch is
@@ -31,7 +31,7 @@ pytestmark = pytest.mark.card
 
 LN_EMB = (500, 800, 300, 40)
 MODES = ("flat", "columns", "mixed", "hash")
-DIMS = (16, 20, 50, 64, 100)
+DIMS = (16, 20, 50, 64, 100, 128)
 LAUNCHES = "openrec.sparse_adam.launches"
 
 

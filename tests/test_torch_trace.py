@@ -221,3 +221,74 @@ def test_feed_span_holds_each_batch_taken():
     # a span for each batch but the last, which was already in flight,
     # and one that finds the source empty
     assert trace.snapshot()["spans"]["openrec.feed.next"]["calls"] == 5
+
+
+# DLRM-DCNv2 at MLPerf's bags (26 tables, 214 ids an example) over small
+# tables: the pooling and cross spans, and the pooled-ids counter
+MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+DCN_LN_EMB = tuple(40 + 7 * t for t in range(26))
+
+
+def _dcn_trainer():
+    model = DLRM(m_spa=4, ln_emb=DCN_LN_EMB, ln_bot=(8, 4), ln_top=(16, 1),
+                 dim_dense=3, arch_interaction_op="dcn", dcn_layers=2,
+                 dcn_rank=3, multi_hot=MULTI_HOT, loss_func="bce",
+                 fused_tables=True, device="cpu")
+    return model, Trainer(model, device="cpu",
+                          sparse_tables=dlrm_fused_table_spec(model))
+
+
+def _dcn_batch(rng, B=16):
+    cols = [rng.integers(0, c, (B, n)) for c, n in zip(DCN_LN_EMB, MULTI_HOT)]
+    return {"dense_features": rng.normal(size=(B, 3)).astype(np.float32),
+            "sparse_features": np.concatenate(cols, 1).astype(np.int32),
+            "label": rng.integers(0, 2, B).astype(np.float32)}
+
+
+def test_dcn_spans_sit_in_the_forward_and_count_bag_ids(tmp_path):
+    model, trainer = _dcn_trainer()
+    batch = _dcn_batch(np.random.default_rng(2))
+    trace.enable(True)
+    got = _profiled(lambda: trainer.train_step(batch), tmp_path / "t.json")
+    assert ("openrec.dlrm.pool", "openrec.train.forward") in got
+    assert ("openrec.dlrm.cross", "openrec.train.forward") in got
+    names = [n for n, _ in got]
+    assert names.index("openrec.dlrm.pool") \
+        < names.index("openrec.dlrm.cross") \
+        < names.index("openrec.train.backward")
+    snap = trace.snapshot()
+    assert snap["spans"]["openrec.dlrm.pool"]["calls"] == 1
+    assert snap["spans"]["openrec.dlrm.cross"]["calls"] == 1
+    assert sum(MULTI_HOT) == 214
+    assert snap["counters"]["openrec.dlrm.bag_ids"] == 214 * 16
+
+
+def test_dcn_tracer_off_records_no_span_and_still_counts(monkeypatch):
+    """Off, the pooling and cross spans enter no annotation and keep no
+    total; the host counter counts as it does on, and the step's
+    results are the same bits."""
+    batch = _dcn_batch(np.random.default_rng(3))
+    results = {}
+    for on in (True, False):
+        torch.manual_seed(0)
+        model, trainer = _dcn_trainer()
+        trace.enable(on)
+        with monkeypatch.context() as m:
+            if not on:
+                def refuse(name):
+                    raise AssertionError(f"record_function({name!r})")
+                m.setattr(torch.profiler, "record_function", refuse)
+            with profile(activities=[ProfilerActivity.CPU]):
+                loss, _ = trainer.train_step(batch)
+        snap = trace.snapshot()
+        trace.enable(False)
+        trace.reset()
+        results[on] = (loss, model.params(), snap)
+    spans_off = results[False][2]["spans"]
+    assert spans_off == {}
+    assert results[False][2]["counters"]["openrec.dlrm.bag_ids"] == 214 * 16
+    assert "openrec.dlrm.pool" in results[True][2]["spans"]
+    assert torch.equal(results[True][0], results[False][0])
+    for n, v in results[True][1].items():
+        assert torch.equal(v, results[False][1][n]), n
