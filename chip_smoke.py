@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,10 # the sequence models alone
     python3 chip_smoke.py --phases 1,11 # ItrMLP at Netflix width alone
     python3 chip_smoke.py --phases 1,12 # the distribution layer alone
+    python3 chip_smoke.py --phases 1,13 # the view-gradient kernel alone
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
@@ -117,7 +118,14 @@ failure raises and exits non-zero:
      bit-identical to the flat mode's (or, as a finding, within rtol
      1e-6); then 50 timed steps each: wall ms/step, device busy ms,
      launches, idle share, the hash mode's host checks a step and the
-     rows one batch gathers.
+     rows one batch gathers. Over the whole phase the view-gradient
+     kernel's launch counter (`openrec.view_grad.launches`) must read one
+     a table and step of every card trainer (`card_table_steps`): the
+     training path's own launches, the kernels line's
+     `view_grad.launches_dlrm`; and its sort counter
+     (`openrec.view_grad.sorts`) one a table and step of the modes other
+     than flat, none of the flat steps, which hand the kernel their
+     dedup's order.
 
   7. the rest of the tf2 zoo (PMF, WRMF, GMF, UCML) at phase 5's width,
      data and optimizer (dim 50, batch 1000, lazy_adam lr 1e-3): 300
@@ -306,6 +314,24 @@ failure raises and exits non-zero:
      id, recall@100 against the exact top-k at least the target less
      0.01, one launch per rank and kernel; ms/step both ways and its
      seconds.
+ 13. the view-gradient kernel (`ops.view_grad`, the backward of the
+     sparse step's gathered-view lookups and bags) at both training
+     cells' shapes, drawn here (`VIEW_GRAD`): train-zipf's 1,703,936
+     lookups of 26 x 65,536 Zipf(1.05) ids into the flat dedup's
+     [1,703,936, 16] view, and train-multihot's 1,753,088 lookups in
+     212,992 bags into a [1,753,088, 128] view (each bag's first id
+     Zipf(1.05), its others uniform), each with the flat dedup's order,
+     as the sparse step hands it. Checks: two calls torch.equal; the
+     kernel within two fp32 summation orders' bound of its plain version
+     and of ATen's autograd backward (`index_select`'s, `embedding_bag`'s,
+     which the port no longer calls), every row no lookup reads exactly
+     zero; its launch counter, zeroed first, one a call (the training
+     path's launches are phase 6's `launches_dlrm`). Times (CUDA-event
+     median of 30, device ms under the profiler) the kernel, the stable
+     sort of the positions that a view without the dedup's order adds,
+     its plain version and, as `library_ms`, ATen's backward, beside the
+     bytes bound; prints a `view_grad <cell>: ...` line each and joins the
+     kernels line as `view_grad`, with a `train-multihot` entry.
 
 After the checks, each serving shape also times 110 requests per method
 (closed loop, one client: median and p90) and profiles 5 more with
@@ -315,7 +341,7 @@ Prints a {"requests": ...} line with the serving latencies, a
 {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
 {"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
 an {"itr": ...} line, a {"parallel": ...} line, a {"kernels": [...]}
-line (K1, K2, K3, and last `sparse_adam`, whose `launches` count phase
+line (K1, K2, K3, `sparse_adam`, whose `launches` count phase
 2's calls and `launches_dlrm` phase 6's; `launches`
 from the serving path for K1/K2 and the training path for K3,
 `launches_zoo` from phase 7, `launches_legacy` from phase 8,
@@ -327,9 +353,10 @@ shapes timed in phase 4, whose `launches` count phase 12 (b)'s, and a
 a `tradesy` entry whose
 `launches` count phase 9's VBPR requests, a `lastfm` entry whose
 `launches` count phase 10's RNNRec requests and a `netflix` entry whose
-`launches` count phase 11's ItrMLP requests), and last
-the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}; a phase that did not run prints nothing, and the fields
+`launches` count phase 11's ItrMLP requests), then `view_grad` (phase
+13, with a `train-multihot` entry; `launches` count phase 13's calls and
+`launches_dlrm` phase 6's), and last the line {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}; a phase that did not run prints nothing, and the fields
 it fills stay null. With --out FILE, the full record (every check, latency,
 profile and timing) is also written there as JSON.
 """
@@ -398,7 +425,7 @@ TIMED = 110
 METHODS = ("pallas", "pallas2", "exact", "approx")
 TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 13)
+PHASES = range(1, 14)
 
 
 def fail(msg):
@@ -407,7 +434,8 @@ def fail(msg):
 
 KERNEL_COUNTERS = {"K1": "openrec.k1.launches", "K2": "openrec.k2.launches",
                    "K3": "openrec.k3.launches",
-                   "sparse_adam": "openrec.sparse_adam.launches"}
+                   "sparse_adam": "openrec.sparse_adam.launches",
+                   "view_grad": "openrec.view_grad.launches"}
 # the serving kernels, whose launches the serving paths count and check
 SERVING_KERNELS = ("K1", "K2", "K3")
 
@@ -1437,6 +1465,8 @@ def dlrm_card_vs_cpu(torch, port, seed, dev, cfg, run):
         trainer = port.Trainer(model, lr=run["lr"], device=d,
                                sparse_tables=dlrm_fused_table_spec(model))
         losses[where] = trainer.train_step_multi(batches).cpu()
+        if where == "card":
+            out["card_table_steps"] = card_table_steps(trainer)
     worst = 0.0
     for key, p in cpu["fused"].params().items():
         q = card["fused"].params()[key].detach().cpu()
@@ -1451,6 +1481,13 @@ def dlrm_card_vs_cpu(torch, port, seed, dev, cfg, run):
                 "max_abs_loss_diff":
                     (losses["card"] - losses["cpu"]).abs().max().item()})
     return out
+
+
+def card_table_steps(trainer):
+    """The sparse tables a step times the steps a card trainer has run:
+    the view-gradient kernel's launches on its path (one a table and
+    step)."""
+    return trainer.global_step * len(trainer.sparse_tables)
 
 
 def criteo_arrays(raw, split, n=None):
@@ -1544,6 +1581,7 @@ def dlrm_criteo_kaggle(torch, port, seed, dev, cfg, run):
                            sparse_tables=dlrm_fused_table_spec(model))
     auc0, _ = dlrm_val_auc(torch, model, val)
     sparse = dlrm_path(torch, trainer, batches, run, "sparse")
+    sparse["card_table_steps"] = card_table_steps(trainer)
     auc, pred32 = dlrm_val_auc(torch, model, val)
     sparse.update({"val_auc_step0": auc0, "val_auc": auc})
     after = model.embed_fused.detach()[sample_t].cpu()
@@ -1658,7 +1696,8 @@ def dlrm_dedup_modes(torch, port, seed, dev, cfg, run, batches):
                      f"from the flat mode's beyond rtol 1e-6 ({worst})")
         ids = {k: torch.as_tensor(v, device=dev)
                for k, v in batches[n_det].items()}
-        uids, valid, _ = tsparse._dedup(spec["embed_fused"](ids), dev, None)
+        uids, valid, _, _ = tsparse._dedup(spec["embed_fused"](ids), dev,
+                                           None)
         r["gathered_rows"] = int(uids.shape[0])
         r["unique_ids"] = int(valid.sum())
         checks = trace.counter(trace.HOST_SYNCS)
@@ -1670,6 +1709,7 @@ def dlrm_dedup_modes(torch, port, seed, dev, cfg, run, batches):
         profile = profile_device(torch, lambda: trainer.train_step(
             next(prof_it)), run["profiled_steps"], ms)
         r.update({"ms_per_step": ms,
+                  "card_table_steps": card_table_steps(trainer),
                   "device_busy_ms_per_step":
                       profile["device_busy_ms_per_call"],
                   "device_ops_per_step": profile["device_ops_per_call"],
@@ -1712,6 +1752,14 @@ def phase_dlrm(torch, port, seed, dev, flagship=FLAGSHIP, kaggle=KAGGLE,
               f"first / last {r['loss_window']} steps "
               f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}",
               flush=True)
+    out["card_table_steps"] = (
+        f["card_table_steps"] + k["sparse"]["card_table_steps"]
+        + sum(m["card_table_steps"] for m in k["modes"].values()))
+    # of which the view's gradient sorts its lookups itself: the modes
+    # other than flat, whose views hold no dedup order
+    out["card_table_steps_unsorted"] = sum(
+        m["card_table_steps"] for mode, m in k["modes"].items()
+        if mode != "flat")
     s = k["sparse"]
     print(f"dlrm criteo-kaggle sparse: val AUC {s['val_auc_step0']:.4f} -> "
           f"{s['val_auc']:.4f}; untouched rows "
@@ -4926,6 +4974,190 @@ def time_sparse_adam(torch, gen, dev, launches, compare_report):
               f"{t['bound_ms']:.4f})", flush=True)
     return entry
 
+# ------------------------------------------------------------ phase 13
+
+# the view gradient at the training cells' shapes, one batch of each
+# cell's ids: train-zipf's 26 x 65,536 Zipf(1.05) ids over Criteo-Kaggle's
+# tables into the flat dedup's [1,703,936, 16] view, and train-multihot's
+# 8,192 examples of 214 ids in MLPerf's 26 bags into a [1,753,088, 128]
+# view (MLPerf DLRM-DCNv2's row counts and bag sizes; each bag's first id
+# Zipf(1.05), its others uniform over the table's rows)
+DCN_COUNTS = (5_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
+              5_000_000, 383_495, 405_282, 10, 2_209, 11_938, 155, 4, 976,
+              14, 5_000_000, 5_000_000, 5_000_000, 590_152, 12_973, 108, 36)
+DCN_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+            100, 27, 10, 3, 1, 1)
+VIEW_GRAD = {
+    "train-zipf": dict(ln_emb=CRITEO_COUNTS, bags=None, D=16, batch=65_536,
+                       zipf=1.05),
+    "train-multihot": dict(ln_emb=DCN_COUNTS, bags=DCN_BAGS, D=128,
+                           batch=8_192, zipf=1.05)}
+
+
+def zipf_ids(torch, count, n, exponent, gen, dev):
+    """n ids in [0, count): rank r (0-based) with probability proportional
+    to (r + 1)**-exponent, by inverse transform over the exact CDF, mapped
+    through a seeded permutation of the rows."""
+    ranks = torch.arange(1, count + 1, dtype=torch.float64, device=dev)
+    cdf = torch.cumsum(ranks.pow_(-exponent), 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(n, dtype=torch.float64, device=dev, generator=gen)
+    r = torch.searchsorted(cdf, u).clamp_(max=count - 1)
+    return torch.randperm(count, device=dev, generator=gen)[r]
+
+
+def view_grad_inputs(torch, dev, seed, cell):
+    """One batch of `cell`'s ids through the flat dedup, as the sparse step
+    makes them: {grad (of the lookups, or of the bags), positions, cap,
+    order (the dedup's), bag (None for lookups), offsets, live}; the
+    gradient drawn at 1e-3 scale."""
+    from openrec_tpu_torch.ops import view_grad as vg
+    from openrec_tpu_torch.training import sparse as tsparse
+    shape = VIEW_GRAD[cell]
+    B, counts = shape["batch"], shape["ln_emb"]
+    sizes = shape["bags"] or (1,) * len(counts)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = []
+    for count, size in zip(counts, sizes):
+        cols.append(zipf_ids(torch, count, B, shape["zipf"], gen, dev))
+        cols += [torch.randint(0, count, (B,), generator=gen, device=dev)
+                 for _ in range(size - 1)]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    ids = (torch.stack(cols, 1) + torch.as_tensor(
+        np.repeat(starts, sizes), device=dev)).reshape(-1)
+    n = ids.shape[0]
+    uids, valid, order = tsparse.unique_padded_order(ids, n)
+    # SubTable.positions: every id is in the view, so nothing clamps
+    pos = torch.searchsorted(uids, ids)
+    offsets, bag = None, None
+    if shape["bags"]:
+        first = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]),
+                                device=dev)
+        offsets = (torch.arange(B, device=dev)[:, None] * sum(sizes)
+                   + first[None, :]).reshape(-1)
+        bag = vg.bag_of(offsets, n)
+    rows = n if bag is None else offsets.shape[0]
+    grad = torch.randn(rows, shape["D"], generator=gen, device=dev) * 1e-3
+    return dict(grad=grad, pos=pos, cap=n, order=order, bag=bag,
+                offsets=offsets, live=int(valid.sum()))
+
+
+def view_grad_cell(torch, dev, seed, cell):
+    """Phase 13 at one cell's shape: checks, then timings; returns its
+    record and the kernel calls it made."""
+    import torch.nn.functional as F
+    from openrec_tpu_torch.ops import view_grad as vg
+    x = view_grad_inputs(torch, dev, seed, cell)
+    grad, pos, cap, order, bag = (x[k] for k in ("grad", "pos", "cap",
+                                                 "order", "bag"))
+    D = grad.shape[1]
+    calls = [0]
+
+    def kernel():
+        calls[0] += 1
+        return vg.view_grad(grad, pos, cap, order=order, bag=bag)
+
+    # what a view without the dedup's order adds (`view_grad`'s own sort)
+    def sort():
+        return torch.sort(pos, stable=True).indices
+
+    got, again = kernel(), kernel()
+    plain = vg.view_grad_plain(grad, pos, cap, bag)
+    rows = torch.zeros(cap, D, device=dev, requires_grad=True)
+    y = (rows.index_select(0, pos) if bag is None
+         else F.embedding_bag(pos, rows, x["offsets"], mode="sum"))
+
+    def library():
+        return torch.autograd.grad(y, rows, grad, retain_graph=True)[0]
+
+    lib = library()
+    torch.cuda.synchronize(dev)
+    # two fp32 sums of a row's L terms in any orders lie within
+    # 2 (L - 1) 2**-24 sum|g| of each other
+    mass = vg.view_grad_plain(grad.abs(), pos, cap, bag)
+    count = torch.bincount(pos, minlength=cap).to(torch.float32)[:, None]
+    bound = 2 * (count - 1).clamp(min=0) * 2.0 ** -24 * mass
+    unread = count[:, 0] == 0
+    rec = {"lookups": pos.shape[0], "cap": cap, "D": D, "live": x["live"],
+           "bags": None if bag is None else x["offsets"].shape[0],
+           "equal_twice": torch.equal(got, again),
+           "within_plain": bool(((got - plain).abs() <= bound).all()),
+           "within_library": bool(((got - lib).abs() <= bound).all()),
+           "max_abs_diff_plain": (got - plain).abs().max().item(),
+           "max_abs_diff_library": (got - lib).abs().max().item(),
+           "unread_rows": int(unread.sum()),
+           "unread_rows_zero": bool((got[unread] == 0).all())}
+    del plain, lib, mass, bound
+    for k in ("equal_twice", "within_plain", "within_library",
+              "unread_rows_zero"):
+        if not rec[k]:
+            fail(f"view_grad {cell}: {k} fails ({rec})")
+    ms = time_ms(torch, kernel)
+    profile = profile_device(torch, kernel, 10, ms)
+    sort_ms = time_ms(torch, sort)
+    sort_profile = profile_device(torch, sort, 10, sort_ms)
+    lib_ms = time_ms(torch, library, runs=20)
+    lib_profile = profile_device(torch, library, 5, lib_ms)
+    plain_ms = time_ms(torch, lambda: vg.view_grad_plain(grad, pos, cap,
+                                                         bag), runs=20)
+    # inputs read once (the gradient, positions, the sort's order, bags),
+    # the [cap, D] gradient written once
+    nbytes = (grad.numel() * 4 + cap * D * 4
+              + pos.numel() * (pos.element_size() + 8
+                               + (0 if bag is None else 8)))
+    rec.update({
+        "ms": ms, "device_ms": profile["device_busy_ms_per_call"],
+        # the stable sort of the positions a view without the dedup's
+        # order adds
+        "sort_ms": sort_ms,
+        "sort_device_ms": sort_profile["device_busy_ms_per_call"],
+        "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library_device_ms": lib_profile["device_busy_ms_per_call"],
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # the bound with a bag's gradient row read once for each lookup
+        "bound_ms_row_per_lookup": (nbytes + (0 if bag is None else (
+            pos.numel() - grad.shape[0]) * D * 4)) / HBM_BYTES_PER_S * 1e3,
+        "profile": profile, "library_profile": lib_profile,
+        "card_after_timing": nvidia_smi("clocks.sm,power.draw,"
+                                        "temperature.gpu")})
+    bags = "" if bag is None else f" in {rec['bags']} bags"
+    print(f"view_grad {cell}: {rec['lookups']} lookups into [{cap}, {D}]"
+          f"{bags}: "
+          f"{ms:.4f} ms (device {rec['device_ms']:.4f}; a sort "
+          f"{rec['sort_device_ms']:.4f} more without the dedup's order; "
+          f"plain {plain_ms:.3f}, library {lib_ms:.4f} / device "
+          f"{rec['library_device_ms']:.4f}, bound {rec['bound_ms']:.4f}); "
+          f"max |diff| plain {rec['max_abs_diff_plain']:.3g}, library "
+          f"{rec['max_abs_diff_library']:.3g}; equal twice", flush=True)
+    return rec, calls[0]
+
+
+def phase_view_grad(torch, dev, seed):
+    """Phase 13: `view_grad_cell` at each training cell's shape; zeroes the
+    kernel's launch counter first and checks it reads one a call. Returns
+    the kernels line's `view_grad` entry."""
+    from openrec_tpu_torch import trace
+    counter = KERNEL_COUNTERS["view_grad"]
+    trace.count(counter, -trace.counter(counter))
+    entry = {"name": "view_grad (the gradient of the sparse step's "
+                     "gathered-view lookups and bags)",
+             "route": "cuda", "source": "openrec_tpu_torch/csrc/view_grad.cu",
+             "replaces": None, "replaces_function": None}
+    calls = 0
+    for cell in VIEW_GRAD:
+        rec, n = view_grad_cell(torch, dev, seed, cell)
+        calls += n
+        if cell == "train-zipf":
+            entry.update(rec)
+        else:
+            entry[cell] = rec
+        torch.cuda.empty_cache()
+    entry["launches"] = trace.counter(counter)
+    if entry["launches"] != calls:
+        fail(f"view_grad: {entry['launches']} launches counted for {calls} "
+             "calls")
+    return entry
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5032,13 +5264,32 @@ def main(argv=None):
     # phase 6
     if 6 in phases:
         t6 = time.perf_counter()
-        before = launch_counts(kernels=("sparse_adam",))
+        from openrec_tpu_torch import trace
+        from openrec_tpu_torch.ops import view_grad as vg
+        before = launch_counts(kernels=("sparse_adam", "view_grad"))
+        sorts = trace.counter(vg.SORTS)
         dlrm = phase_dlrm(torch, port, args.seed, dev)
         dlrm["phase_s"] = time.perf_counter() - t6
-        dlrm["sparse_adam_launches"] = launch_counts(
-            before, kernels=("sparse_adam",))["sparse_adam"]
+        counted = launch_counts(before, kernels=("sparse_adam", "view_grad"))
+        dlrm["sparse_adam_launches"] = counted["sparse_adam"]
         if sparse_adam:
             sparse_adam["launches_dlrm"] = dlrm["sparse_adam_launches"]
+        # the training path's own launches of the view-gradient kernel:
+        # one a table and step of every card trainer of the phase; the
+        # flat steps hand it their dedup's order, the other modes sort
+        dlrm["view_grad_launches"] = counted["view_grad"]
+        dlrm["view_grad_sorts"] = trace.counter(vg.SORTS) - sorts
+        if counted["view_grad"] != dlrm["card_table_steps"] \
+                or dlrm["view_grad_sorts"] \
+                != dlrm["card_table_steps_unsorted"]:
+            fail(f"dlrm: {counted['view_grad']} view_grad launches and "
+                 f"{dlrm['view_grad_sorts']} sorts for "
+                 f"{dlrm['card_table_steps']} table-steps on the card, "
+                 f"{dlrm['card_table_steps_unsorted']} of them not flat")
+        print(f"phase 6 (dlrm): view_grad {counted['view_grad']} launches "
+              f"for {dlrm['card_table_steps']} table-steps, "
+              f"{dlrm['view_grad_sorts']} sorts for the "
+              f"{dlrm['card_table_steps_unsorted']} not flat", flush=True)
         print(f"phase 6 (dlrm): {dlrm['phase_s']:.1f} s", flush=True)
         torch.cuda.empty_cache()
 
@@ -5115,6 +5366,17 @@ def main(argv=None):
                 parallel["gloo_m2"]["launches"][kname]
     if sparse_adam:
         kernels.append(sparse_adam)
+
+    # phase 13
+    if 13 in phases:
+        t13 = time.perf_counter()
+        view_grad = phase_view_grad(torch, dev, args.seed)
+        view_grad["launches_dlrm"] = (dlrm or {}).get("view_grad_launches")
+        view_grad["phase_s"] = time.perf_counter() - t13
+        print(f"phase 13 (view_grad): {view_grad['phase_s']:.1f} s",
+              flush=True)
+        kernels.append(view_grad)
+        torch.cuda.empty_cache()
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy

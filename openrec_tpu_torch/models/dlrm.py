@@ -158,6 +158,20 @@ class DLRM(Recommender):
         sparse = torch.as_tensor(sparse_features, device=self._offsets.device)
         return sparse + self._offsets[None, :]
 
+    def _fused_ids(self, sparse: torch.Tensor, table) -> torch.Tensor:
+        """`sparse`'s flat fused ids [B * C] for a lookup of `table`. A
+        sparse step's view made from these very ids hands its own tensor
+        (`training.sparse.SubTable.ids`), whose dedup sort the lookup's
+        gradient then takes; the two are checked equal on the device,
+        with no host sync (`torch._assert_async`)."""
+        flat = self.flat_sparse_ids(sparse).reshape(-1)
+        ids = getattr(table, "ids", None)
+        if ids is None or ids.shape != flat.shape:
+            return flat
+        torch._assert_async((ids == flat).all(),
+                            "the view's ids are not this batch's")
+        return ids
+
     def pooled(self, sparse: torch.Tensor,
                tables: dict | None = None) -> torch.Tensor:
         """[B, sum(multi_hot)] ids -> [B, T, m_spa]: each table's bag of
@@ -171,9 +185,9 @@ class DLRM(Recommender):
             offsets = (torch.arange(B, dtype=torch.int64,
                                     device=sparse.device)[:, None] * C
                        + self._bag_starts[None, :]).reshape(-1)
+            table = self.table("embed_fused", tables)
             return embedding_bags(
-                self.table("embed_fused", tables),
-                self.flat_sparse_ids(sparse).reshape(-1),
+                table, self._fused_ids(sparse, table),
                 offsets).reshape(B, len(self.ln_emb), self.m_spa)
 
     def predict(self, dense_features, sparse_features,
@@ -187,8 +201,8 @@ class DLRM(Recommender):
         if self.multi_hot is not None:
             sparse_vecs = self.pooled(sparse, tables)
         elif self.fused_tables:
-            rows = embedding_lookup(self.table("embed_fused", tables),
-                                    self.flat_sparse_ids(sparse).reshape(-1))
+            table = self.table("embed_fused", tables)
+            rows = embedding_lookup(table, self._fused_ids(sparse, table))
             sparse_vecs = rows.reshape(B, T, self.m_spa)
         else:
             sparse_vecs = torch.stack(

@@ -58,11 +58,11 @@ def embedding_bags(table: torch.Tensor, ids,
     int64 tensor on the ids' device); [len(offsets), D]. One
     `embedding_bag` gathers and sums every bag, so the looked-up rows are
     never written out. Out-of-range ids clamp as in `embedding_lookup`. A
-    gathered view (`training.sparse.SubTable`, `HashSubTable`) maps the
-    ids to its rows by its own `positions`."""
-    if hasattr(table, "positions"):
-        return F.embedding_bag(table.positions(ids), table.rows, offsets,
-                               mode="sum")
+    gathered view (`training.sparse.SubTable`, `HashSubTable`) pools its
+    own rows by its `bags`, the same `embedding_bag` over the ids' rows in
+    the view, whose gradient `ops.view_grad` sums."""
+    if hasattr(table, "bags"):
+        return table.bags(ids, offsets)
     ids = torch.as_tensor(ids, device=table.device)
     safe = ids.long().clamp(0, table.shape[0] - 1).reshape(-1)
     return F.embedding_bag(safe, table, offsets, mode="sum")

@@ -12,7 +12,11 @@ gigabytes a step. Here a step costs O(batch):
   2. those rows are gathered into a fresh leaf tensor [cap, D];
   3. the model's loss runs with the table replaced by a `SubTable` view of
      the gathered rows (`model.loss(batch, tables={name: view})`), so
-     autograd never allocates a gradient of the table's size;
+     autograd never allocates a gradient of the table's size; the view's
+     lookups and bags take their gradient from `ops.view_grad` (on the
+     card one CUDA kernel that sums each row's lookups in the order of
+     step 1's sort where the lookup is of the ids step 1 sorted, else of
+     one stable sort of the lookups' rows; no atomics);
   4. Adam (the keras form, as `lazy_adam`) updates each table's live rows
      and their moments IN PLACE (`ops.sparse_adam`: on the card one CUDA
      kernel that reads and writes the live rows alone; a pad writes
@@ -40,21 +44,68 @@ import torch
 
 from openrec_tpu_torch import trace
 from openrec_tpu_torch.ops.sparse_adam import sparse_adam_apply
+from openrec_tpu_torch.ops.view_grad import view_bags, view_lookup
 from openrec_tpu_torch.training.optim import (_adam_alpha, adam,
                                               apply_updates)
 
 
-class SubTable:
+class _GatheredView:
+    """What `SubTable` and `HashSubTable` share: lookups and bags of the
+    gathered rows, whose gradient `ops.view_grad` sums. A subclass gives
+    `positions(ids)`, and the lookups' order by row where it has one."""
+
+    rows: torch.Tensor
+
+    def _order(self, ids: torch.Tensor):
+        """A permutation sorting the flat `ids`' positions, stable, or
+        None (`view_grad` then sorts them)."""
+        return None
+
+    def lookup(self, ids) -> torch.Tensor:
+        ids = torch.as_tensor(ids, device=self.rows.device)
+        return view_lookup(self.rows, self.positions(ids),
+                           self._order(ids)).reshape(
+            *ids.shape, *self.rows.shape[1:])
+
+    def bags(self, ids, offsets) -> torch.Tensor:
+        """Sums of the rows of `ids` [N] over bags starting at `offsets`,
+        as `modules.embedding.embedding_bags`."""
+        ids = torch.as_tensor(ids, device=self.rows.device)
+        return view_bags(self.rows, self.positions(ids), offsets,
+                         self._order(ids))
+
+    @property
+    def T(self):
+        raise TypeError(
+            f"full-table ops are not available on a {type(self).__name__} "
+            "view; score() must use the full table (run it outside the "
+            "sparse step)")
+
+
+class SubTable(_GatheredView):
     """A gathered view of an embedding table.
 
     Duck-types the table for `embedding_lookup`: an original id resolves
     inside the gathered rows by a binary search over the sorted unique ids
     (left side: the FIRST match, never a pad that aliases it). Ids not in
-    the view clamp to some row, as a lookup's clip mode does."""
+    the view clamp to some row, as a lookup's clip mode does.
 
-    def __init__(self, uids_sorted: torch.Tensor, rows: torch.Tensor):
+    `ids` and `order`, which the flat step gives: the flat ids the view
+    was deduped from and the stable permutation that sorted them. The
+    search is monotone, so `order` also sorts those ids' positions. A
+    lookup of that very memory (the same address, shape, strides and
+    version: the ids tensor itself, as `DLRM` looks it up, or a batch
+    tensor the spec took as it was) hands `order` to the gradient; any
+    other lookup leaves the grouping to `ops.view_grad`, which counts
+    the sort it runs."""
+
+    def __init__(self, uids_sorted: torch.Tensor, rows: torch.Tensor,
+                 ids: torch.Tensor | None = None,
+                 order: torch.Tensor | None = None):
         self.uids_sorted = uids_sorted    # [K] int32, sorted (with pads)
         self.rows = rows                  # [K, D]
+        self.ids, self.order = ids, order
+        self._ids_version = None if ids is None else ids._version
 
     def positions(self, ids) -> torch.Tensor:
         """Each id's row in the view, flattened."""
@@ -64,16 +115,16 @@ class SubTable:
             ids.to(self.uids_sorted.dtype).contiguous().reshape(-1))
         return pos.clamp(0, self.rows.shape[0] - 1)
 
-    def lookup(self, ids) -> torch.Tensor:
-        ids = torch.as_tensor(ids, device=self.rows.device)
-        return self.rows.index_select(0, self.positions(ids)).reshape(
-            *ids.shape, *self.rows.shape[1:])
-
-    @property
-    def T(self):
-        raise TypeError(
-            "full-table ops are not available on a SubTable view; score() "
-            "must use the full table (run it outside the sparse step)")
+    def _order(self, ids: torch.Tensor):
+        if self.order is None:
+            return None
+        flat, made = ids.reshape(-1), self.ids
+        same = (flat.device == made.device and flat.dtype == made.dtype
+                and flat.shape == made.shape
+                and flat.stride() == made.stride()
+                and flat.data_ptr() == made.data_ptr()
+                and flat._version == self._ids_version)
+        return self.order if same else None
 
 
 def _compact_sorted(sorted_ids: torch.Tensor, cap: int):
@@ -100,7 +151,16 @@ def unique_padded(ids, cap: int):
     entries. Lookups resolve to the first match, so a pad never receives
     a gradient; a scatter must mask its contributions with `valid`, since
     a pad aliases a real id."""
-    return _compact_sorted(torch.sort(ids.reshape(-1)).values, cap)
+    return unique_padded_order(ids, cap)[:2]
+
+
+def unique_padded_order(ids, cap: int):
+    """(uids, valid, order): `unique_padded`'s, and the permutation [n]
+    int64 that sorted the flat ids, stable (equal ids keep the batch's
+    order): the grouping `SubTable` hands to the gradient of a lookup of
+    those ids."""
+    srt = torch.sort(ids.reshape(-1), stable=True)
+    return (*_compact_sorted(srt.values, cap), srt.indices)
 
 
 class Columns:
@@ -301,7 +361,7 @@ def hash_positions(slot_ids, ids, unroll: int = 8, rounds: int | None = None):
     return pos
 
 
-class HashSubTable:
+class HashSubTable(_GatheredView):
     """A gathered view keyed by a `unique_hashed` slot table (the sort-free
     sibling of `SubTable`): a lookup re-probes the slot table."""
 
@@ -317,18 +377,6 @@ class HashSubTable:
         ids = torch.as_tensor(ids, device=self.rows.device)
         return hash_positions(self.slot_ids, ids, unroll=self.unroll,
                               rounds=self.rounds).reshape(-1)
-
-    def lookup(self, ids) -> torch.Tensor:
-        ids = torch.as_tensor(ids, device=self.rows.device)
-        return self.rows.index_select(0, self.positions(ids)).reshape(
-            *ids.shape, *self.rows.shape[1:])
-
-    @property
-    def T(self):
-        raise TypeError(
-            "full-table ops are not available on a HashSubTable view; "
-            "score() must use the full table (run it outside the sparse "
-            "step)")
 
 
 class SparseAdamState(NamedTuple):
@@ -474,22 +522,24 @@ def masked_gather(table: torch.Tensor, ids, lo: int) -> torch.Tensor:
 
 
 def _dedup(raw, device, id_cap):
-    """(uids, valid, hash rounds run or None) of one table's extracted
-    ids."""
+    """(uids, valid, hash rounds run or None, sorted) of one table's
+    extracted ids; sorted: the flat mode's (flat ids, the stable order
+    that sorted them), else None."""
     if isinstance(raw, Hashed):
         slots, valid, rounds = _insert_hashed(
             torch.as_tensor(raw.ids, device=device), rounds=raw.rounds)
-        return slots, valid, rounds
+        return slots, valid, rounds, None
     if isinstance(raw, ColumnIds):
         return (*unique_padded_mixed(ColumnIds(
             torch.as_tensor(raw.ids_bt, device=device), raw.counts,
-            raw.offsets)), None)
+            raw.offsets)), None, None)
     if isinstance(raw, Columns):
         return (*unique_padded_columns(
-            torch.as_tensor(raw.ids_bt, device=device)), None)
+            torch.as_tensor(raw.ids_bt, device=device)), None, None)
     all_ids = torch.as_tensor(raw, device=device).reshape(-1)
     cap = min(id_cap or all_ids.shape[0], all_ids.shape[0])
-    return (*unique_padded(all_ids, cap), None)
+    uids, valid, order = unique_padded_order(all_ids, cap)
+    return uids, valid, None, (all_ids, order)
 
 
 def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
@@ -562,9 +612,9 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         params = model.params()
         # 1) unique ids per table, at a size fixed by the batch's shape
         with trace.span("openrec.train.dedup"):
-            uids, valid, hashed = {}, {}, {}
+            uids, valid, hashed, srt = {}, {}, {}, {}
             for path, extract in specs.items():
-                uids[path], valid[path], hashed[path] = _dedup(
+                uids[path], valid[path], hashed[path], srt[path] = _dedup(
                     extract(batch if ids_batch is None else ids_batch),
                     params[names[path]].device, id_cap)
                 trace.count("openrec.train.id_slots", valid[path].numel())
@@ -583,8 +633,13 @@ def make_sparse_train_step(model, table_specs, learning_rate=1e-3, b1=0.9,
         dense = _split_dense(params)
         # 3) the loss over the gathered views and the dense parameters
         sharded = layout.views(model)
+        # the flat dedup's ids and sort go to the view where the forward
+        # looks up this batch (not another rank's ids_batch)
         views = {**sharded, **{names[path]: (
-            SubTable(uids[path], rows[path]) if hashed[path] is None
+            SubTable(uids[path], rows[path],
+                     *(srt[path] if ids_batch is None and srt[path]
+                       else ()))
+            if hashed[path] is None
             else HashSubTable(uids[path], rows[path], rounds=hashed[path]))
             for path in specs}}
         with trace.span("openrec.train.forward"):

@@ -357,7 +357,7 @@ def test_sparse_adam_is_the_steps_former_arithmetic(case, monkeypatch):
         return out
 
     def apply(table, mu, nu, at, write, g, alpha, b1, b2, eps):
-        uids, valid, hashed = dedups.pop(0)
+        uids, valid, hashed, _ = dedups.pop(0)
         before = [t.clone() for t in (table, mu, nu)]
         want = [t.clone() for t in (table, mu, nu)]
         _update_as_written_before(*want, uids, valid, hashed is not None, lo,

@@ -131,10 +131,12 @@ def test_cpu_tensors_count_no_kernel_launch():
     from openrec_tpu_torch.ops import bucketed_topk as bt
     from openrec_tpu_torch.ops import fused_score_topk
     from openrec_tpu_torch.ops.sparse_adam import sparse_adam_apply
+    from openrec_tpu_torch.ops.view_grad import view_grad, view_lookup
 
     def launches():
         return tuple(trace.counter(f"openrec.{k}.launches")
-                     for k in ("k1", "k2", "k3", "sparse_adam"))
+                     for k in ("k1", "k2", "k3", "sparse_adam",
+                               "view_grad"))
     before = launches()
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
@@ -148,7 +150,12 @@ def test_cpu_tensors_count_no_kernel_launch():
                       torch.tensor([True, True, False]), u,
                       torch.tensor(1e-3), 0.9, 0.999, 1e-7)
     assert mu[[4, 9]].any() and not mu[0].any()
-    assert launches() == before == (0, 0, 0, 0)
+    pos = torch.tensor([4, 9, 4])
+    assert view_grad(u, pos, 12, order=torch.tensor([0, 2, 1]))[4].any()
+    rows = v[:12].clone().requires_grad_()
+    view_lookup(rows, pos).sum().backward()
+    assert rows.grad[[4, 9]].any() and not rows.grad[0].any()
+    assert launches() == before == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["PMF", "WRMF", "GMF", "UCML",
