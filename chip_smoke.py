@@ -2,65 +2,24 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py               # every phase, from the repo root
-    python3 chip_smoke.py --phases 1,2  # build and compare the kernels
-    python3 chip_smoke.py --phases 1,2,4    # ... and time them
+    python3 chip_smoke.py --phases 1,4  # build and time the kernels
+    python3 chip_smoke.py --phases 1,5  # the training path alone
     python3 chip_smoke.py --phases 1,9  # the visual family alone
     python3 chip_smoke.py --phases 1,10 # the sequence models alone
     python3 chip_smoke.py --phases 1,11 # ItrMLP at Netflix width alone
     python3 chip_smoke.py --phases 1,12 # the distribution layer alone
-    python3 chip_smoke.py --phases 1,13 # the view-gradient kernel alone
+
+The card tests check each hand-written kernel against its plain version
+at its edge cases (`tests/test_torch_*_card.py`); this script holds each
+kernel against its plain version at the main path's shapes by the same
+checks (`tests/kernel_cases.py`) as it times it, and runs the models at
+their published widths.
 
 Phases, in order (`--phases` picks some; phase 1 always runs); any
 failure raises and exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels from
      openrec_tpu_torch/csrc with nvcc, one process per source, all at once
      (set-up time, printed).
-  2. hold each kernel against its plain PyTorch version on the card: for
-     K1/K2 (`K1K2_CASES`; bf16 runs the tensor-core route, f32 the
-     CUDA-core route) f32 and bf16, D in {50, 60, 64, 100, 384}, a ragged
-     catalog tail, bucket = 1, a split bucket range, B = 37, tables whose
-     rows start 8-, 4- or 2-byte aligned (views into their storage), twin
-     bucket members (exact ties: slot 1 keeps the earlier, K2's slot 2 the
-     twin), no bias, and the serving shapes (Amazon; CiteULike; VBPR's
-     Tradesy bf16 D = 100, whose 200-byte rows pad to Dp 112 and start
-     every other one 8-byte aligned; LastFM's fp32 D = 32 with a bias and
-     D = 50 without, phase 10's; Netflix's fp32 D = 20, 80-byte rows,
-     phase 11's, with D = 20 twins and 4-byte aligned rows); for K3 k in
-     {1, 100,
-     128, 129, 1000}, k == I on a 300-item catalog, B and I off the
-     kernel's tiling, duplicated item rows (exact ties), tables that do not
-     start on a 16-byte boundary, all-equal scores (K3's rescan branch),
-     a catalog of fewer than 8*Kb items, and the Amazon, CiteULike,
-     Tradesy (bf16 D = 100: tau's scalar item_score path), LastFM
-     (fp32 D = 32; D = 50 without a bias) and Netflix shapes (fp32 D =
-     20, and D = 20 off the tiling); K1/K2 also at phase 12's Amazon row
-     shards (m = 2: 225,083 rows, m = 4: 112,542 with two pad rows at
-     bias -1e30), at the buckets the two methods pick there. Values
-     within rtol=atol=1e-5; an id may differ only where the two picks
-     score within that tolerance (a different summation order); K2's
-     second slot as id sets. Every user must have at least min(k, I) K3
-     candidates. Then the sparse step's Adam kernel (`sparse_adam`)
-     against its plain version at dlrm-kaggle.train-zipf's shapes
-     (`SPARSE_ADAM`: one fused table of 33,762,577 x 16 fp32 rows,
-     210,127 live of 1,703,936 slots) in the flat dedup's layout (live
-     rows sorted at the front, int32, every pad repeating the last) and
-     the partial path's (live slots scattered, int64, each dead slot at a
-     random row), and at dlrm-dcnv2.train-multihot's (`SPARSE_ADAM_DCN`:
-     D 128, 714,574 live of 1,753,088 slots, the table's rows halved so
-     that kernel and plain version each hold a whole state) in the flat
-     layout: table, mu and nu torch.equal, and its launch counter,
-     zeroed first, reading one a call.
-  3. the serving path at full width: BPR at the Amazon catalog of
-     examples/serving_retrieval.py (99,473 users x 450,166 items x 64,
-     bf16 serve tables) with random weights made from --seed by numpy and
-     loaded through convert.params_from_jax, then 8 requests of 256 users
-     with top-100 by 'pallas' (recall target 0.99), 'pallas2' (0.995),
-     'exact' and 'approx'. Every returned score must equal the fp32 score
-     at its id, recall against 'exact' must reach the target less 0.01,
-     K1's and K2's launch counters must read one a request and K3's 0
-     (the Amazon entry of the kernels line reports that count), and one
-     eval_metrics batch must match the dense metrics. Then the same at the BPR-CiteULike shape
-     of bench.py (5,551 x 16,980 x 50, fp32 tables).
   4. time each kernel with CUDA events (median of 30 after warm-up) beside
      its plain version, a library yardstick (torch.matmul + torch.topk,
      which the port never calls) and its bound (bytes at 3.35 TB/s,
@@ -68,15 +27,35 @@ failure raises and exits non-zero:
      kernel under torch.profiler: K1/K2 at the Amazon serving shape (bf16),
      at the CiteULike shape (fp32), at VBPR's Tradesy shape (256 x
      165,906 x 100, bf16), at RNNRec's LastFM shape (256 x 14,598 x
-     32, fp32) and at ItrMLP's Netflix shape (256 x 17,770 x 20, fp32,
-     with a bias), each at the bucket its method picks there, K3 at the
-     CiteULike retrieval shape of phase 5, at the Amazon, Tradesy,
-     LastFM and Netflix shapes, each of K3's four launches (K1 bound
-     pass, tau, filter, final) on its own too; `sparse_adam` at
-     train-zipf's shapes in the flat layout, beside its plain version and
-     its bound (no library yardstick: no library op does this), and
-     again at dlrm-dcnv2's whole 26,500,127 x 128 table (its `dcnv2`
-     entry).
+     32, fp32), at ItrMLP's Netflix shape (256 x 17,770 x 20, fp32,
+     with a bias) and at phase 12's row shards, each at the bucket its
+     method picks there, K3 at the CiteULike retrieval shape of phase 5,
+     at the Amazon, Tradesy, LastFM and Netflix shapes, each of K3's four
+     launches (K1 bound pass, tau, filter, final) on its own too;
+     `sparse_adam` at train-zipf's shapes in the flat layout, beside its
+     plain version and its bound (no library yardstick: no library op
+     does this), and again at dlrm-dcnv2's whole 26,500,127 x 128 table
+     (its `dcnv2` entry); `view_grad` (the backward of the sparse step's
+     gathered-view lookups and bags) at both training cells' shapes
+     (`kernel_cases.VIEW_GRAD`, each with the flat dedup's order as the
+     sparse step hands it), beside the stable sort of the positions
+     that a view without that order adds, its plain version, ATen's
+     autograd backward as the library yardstick and the bytes bound,
+     with its max |diff| against the plain version. Before it is timed,
+     each kernel is held against its plain version on the very tensors
+     it is timed on, by the card tests' own checks (`tests/
+     kernel_cases.py`: `hold_k1k2`, `hold_k3`, `hold_sparse_adam`,
+     `hold_view_grad`), one launch counted a call. Then BPR at the Amazon
+     catalog (bf16 serve tables) through `CachedDotProductScorer`: one
+     request of 256 users by `pallas`, `pallas2`, `exact` and `approx`
+     (`hold_serving`: K1 once a `pallas` request, K2 once a `pallas2`
+     request, K3 never, every score the fp32 score at its id, recall
+     against `exact` at least the target less 0.01) and one
+     `eval_metrics` batch equal to the dense metrics. The shapes come
+     from `tests/kernel_cases.py`; the card tests (`python -m pytest
+     --noconftest -p no:cacheprovider -m card tests/test_torch_*_card.py`)
+     hold each kernel there and at its edge cases.
+
   5. the training path at full width: BPR 5,551 x 16,980 x dim 50, batch
      1000, lazy_adam at lr 1e-3 on the card, on synthetic_citeulike()'s
      records with each item redrawn from a long-tailed popularity (see
@@ -121,8 +100,7 @@ failure raises and exits non-zero:
      rows one batch gathers. Over the whole phase the view-gradient
      kernel's launch counter (`openrec.view_grad.launches`) must read one
      a table and step of every card trainer (`card_table_steps`): the
-     training path's own launches, the kernels line's
-     `view_grad.launches_dlrm`; and its sort counter
+     training path's own launches; and its sort counter
      (`openrec.view_grad.sorts`) one a table and step of the modes other
      than flat, none of the flat steps, which hand the kernel their
      dedup's order.
@@ -272,7 +250,7 @@ failure raises and exits non-zero:
  12. the distribution layer (`openrec_tpu_torch/parallel/`) on the card:
      a one-rank NCCL process group (its TCPStore on a free localhost
      port; a failed init raises) and a 1 x 1 ('data', 'model') mesh.
-     (a) At phase 3's Amazon serving shape (450,166 x 64 bf16 items,
+     (a) At the Amazon serving shape (450,166 x 64 bf16 items,
      99,473 users, 8 requests of 256, k 100), `sharded_pallas_topk` with
      per_bucket 1 (target 0.99) and 2 (0.995) must equal the
      single-device `bucket_score_topk` bit for bit, K1 and K2 launched
@@ -314,57 +292,25 @@ failure raises and exits non-zero:
      id, recall@100 against the exact top-k at least the target less
      0.01, one launch per rank and kernel; ms/step both ways and its
      seconds.
- 13. the view-gradient kernel (`ops.view_grad`, the backward of the
-     sparse step's gathered-view lookups and bags) at both training
-     cells' shapes, drawn here (`VIEW_GRAD`): train-zipf's 1,703,936
-     lookups of 26 x 65,536 Zipf(1.05) ids into the flat dedup's
-     [1,703,936, 16] view, and train-multihot's 1,753,088 lookups in
-     212,992 bags into a [1,753,088, 128] view (each bag's first id
-     Zipf(1.05), its others uniform), each with the flat dedup's order,
-     as the sparse step hands it. Checks: two calls torch.equal; the
-     kernel within two fp32 summation orders' bound of its plain version
-     and of ATen's autograd backward (`index_select`'s, `embedding_bag`'s,
-     which the port no longer calls), every row no lookup reads exactly
-     zero; its launch counter, zeroed first, one a call (the training
-     path's launches are phase 6's `launches_dlrm`). Times (CUDA-event
-     median of 30, device ms under the profiler) the kernel, the stable
-     sort of the positions that a view without the dedup's order adds,
-     its plain version and, as `library_ms`, ATen's backward, beside the
-     bytes bound; prints a `view_grad <cell>: ...` line each and joins the
-     kernels line as `view_grad`, with a `train-multihot` entry.
 
-After the checks, each serving shape also times 110 requests per method
-(closed loop, one client: median and p90) and profiles 5 more with
-torch.profiler (device time by kernel, idle share).
-
-Prints a {"requests": ...} line with the serving latencies, a
-{"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...} line, a
-{"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...} line,
-an {"itr": ...} line, a {"parallel": ...} line, a {"kernels": [...]}
-line (K1, K2, K3, `sparse_adam`, whose `launches` count phase
-2's calls and `launches_dlrm` phase 6's; `launches`
-from the serving path for K1/K2 and the training path for K3,
-`launches_zoo` from phase 7, `launches_legacy` from phase 8,
-`launches_visual` from phase 9, `launches_sequence` from phase 10,
-`launches_itr` from phase 11, `launches_parallel` from phase 12 (a);
-K1 and K2 with `amazon_shard2` / `amazon_shard4` entries, the per-shard
-shapes timed in phase 4, whose `launches` count phase 12 (b)'s, and a
-`lastfm_shard2` entry whose `launches` count (g)'s requests; each with
-a `tradesy` entry whose
-`launches` count phase 9's VBPR requests, a `lastfm` entry whose
-`launches` count phase 10's RNNRec requests and a `netflix` entry whose
-`launches` count phase 11's ItrMLP requests), then `view_grad` (phase
-13, with a `train-multihot` entry; `launches` count phase 13's calls and
-`launches_dlrm` phase 6's), and last the line {"ok": true, "device":
-{"platform": "gpu", "kind": ..., "count": ...}}; a phase that did not run prints nothing, and the fields
-it fills stay null. With --out FILE, the full record (every check, latency,
+Prints a {"training": ...} line, a {"dlrm": ...} line, a {"zoo": ...}
+line, a {"legacy": ...} line, a {"visual": ...} line, a {"sequence": ...}
+line, an {"itr": ...} line, a {"parallel": ...} line (each model phase
+with its own kernel launch counts), a {"kernels": [...]} line (phase 4:
+K1 and K2 at the Amazon shape with `citeulike`, `tradesy`, `lastfm`,
+`netflix`, `amazon_shard2`, `amazon_shard4` and `lastfm_shard2` entries;
+K3 at the CiteULike shape with `amazon`, `tradesy`, `lastfm` and
+`netflix` entries; `sparse_adam` at train-zipf's shapes with a `dcnv2`
+entry; `view_grad` at train-zipf's with a `train-multihot` entry), a
+{"serving": ...} line (phase 4's Amazon requests), and last the line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}; a phase that did not run prints nothing, and the fields
+it fills stay null. With --out FILE, the full record (every check,
 profile and timing) is also written there as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -376,76 +322,19 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# the kernels' shapes and the checks that the card tests share
+sys.path.append(str(ROOT / "tests"))
+from kernel_cases import (  # noqa: E402
+    AMAZON, BATCH, CITEULIKE, CRITEO_COUNTS, K, KERNEL_COUNTERS, LASTFM,
+    LASTFM_SHARD2, METHODS, NETFLIX, REQUESTS, SHARD2, SHARD4, SPARSE_ADAM,
+    SPARSE_ADAM_DCN, TARGETS, TRADESY, VIEW_GRAD, bpr_serving, check_topk,
+    compare_kernel, fail, hold_eval_metrics, hold_k1k2, hold_k3,
+    hold_serving, hold_sparse_adam, hold_view_grad, launch_counts, near,
+    serve_topk, sparse_adam_hyper, sparse_adam_inputs, view_grad_inputs)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
-TOL = 1e-5
-AMAZON = dict(name="amazon", users=99_473, items=450_166, dim=64,
-              dtype="bfloat16")
-CITEULIKE = dict(name="citeulike", users=5_551, items=16_980, dim=50,
-                 dtype="float32")
-
-
-def port_catalog(name):
-    """`openrec_tpu_torch.data.loaders.<name>` ({"total_users",
-    "total_items"}), read from its file: the module needs only numpy, and
-    the case lists below are built when this script is imported, before
-    torch or the package is. {} where the checkout holds no port (main()
-    then stops before any case runs)."""
-    path = ROOT / "openrec_tpu_torch" / "data" / "loaders.py"
-    if not path.is_file():
-        return {}
-    spec = importlib.util.spec_from_file_location("_port_loaders", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return getattr(module, name)
-
-
-# VBPR's serving shape (examples/vbpr_tradesy.py: dim_user 100, bf16) over
-# the Tradesy catalog
-TRADESY = dict(name="tradesy", dim=100, dtype="bfloat16",
-               items=port_catalog("TRADESY").get("total_items"))
-# the sequence models' serving shapes over the LastFM catalog: RNNRec's
-# GRU state (32 units) against its output table and bias, fp32; and
-# YouTubeRec's last hidden layer (dim 50) against the transposed last MLP
-# weight, no bias
-LASTFM = dict(name="lastfm", dim=32, dtype="float32",
-              items=port_catalog("LASTFM").get("total_items"))
-# ItrMLP's serving shape (examples/itr_mlp.py: dim 20, fp32) over the
-# Netflix Prize catalog: 480,189 users x 17,770 movies, the dataset's
-# public counts
-NETFLIX = dict(name="netflix", users=480_189, items=17_770, dim=20,
-               dtype="float32")
-BATCH, K, REQUESTS = 256, 100, 8
-# the Amazon catalog's row shards over m = 2 and m = 4 ranks (pad_rows)
-SHARD2, SHARD4 = 225_083, 112_542
-# the LastFM catalog's row shards over m = 2 ranks (phase 12 (g)'s
-# RNNRec out_weight / out_bias)
-LASTFM_SHARD2 = -(-(LASTFM["items"] or 0) // 2)
-TIMED = 110
-METHODS = ("pallas", "pallas2", "exact", "approx")
-TARGETS = {"pallas": 0.99, "pallas2": 0.995}
 F32_VARIANT = "fma-f32-cp.async"      # K1/K2's fp32 route
-PHASES = range(1, 14)
-
-
-def fail(msg):
-    raise RuntimeError(msg)
-
-
-KERNEL_COUNTERS = {"K1": "openrec.k1.launches", "K2": "openrec.k2.launches",
-                   "K3": "openrec.k3.launches",
-                   "sparse_adam": "openrec.sparse_adam.launches",
-                   "view_grad": "openrec.view_grad.launches"}
-# the serving kernels, whose launches the serving paths count and check
-SERVING_KERNELS = ("K1", "K2", "K3")
-
-
-def launch_counts(since=None, kernels=SERVING_KERNELS):
-    """{kernel: launches counted by the port's tracer (`trace.py`)} for
-    `kernels`, less those of `since` (an earlier reading) where given."""
-    from openrec_tpu_torch import trace
-    return {k: trace.counter(KERNEL_COUNTERS[k]) - (since or {}).get(k, 0)
-            for k in kernels}
+PHASES = (1, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def give_back(since):
@@ -469,633 +358,6 @@ def kernel_name(symbol):
     if symbol[i:i + 1] == "I":
         name += "<" + symbol[i + 1:symbol.index("E", i)] + ">"
     return name
-
-
-def near(x, y):
-    """x equals y within rtol = atol = TOL (elementwise, tensors)."""
-    return (x - y).abs() <= TOL + TOL * y.abs()
-
-
-def make_params(rng, users, items, dim):
-    """BPR weights as the JAX package would hand them over: numpy arrays,
-    uniform(-0.05, 0.05) embeddings and a nonzero bias."""
-    return {
-        "user_embed": rng.uniform(-0.05, 0.05, (users, dim)).astype(
-            np.float32),
-        "item_embed": rng.uniform(-0.05, 0.05, (items, dim)).astype(
-            np.float32),
-        "item_bias": rng.normal(0.0, 0.01, (items, 1)).astype(np.float32),
-    }
-
-
-# ------------------------------------------------------------ phase 2
-
-def compare_kernel(torch, bt, u, v, b, bucket, top2):
-    """Kernel vs plain version on the same card tensors. Returns
-    (max_abs_err, non-tie id mismatches, tie id mismatches)."""
-    plain = bt.bucket_max_plain(u, v, b, bucket, top2=top2)
-    kern = (bt.bucket_max2_scores if top2 else bt.bucket_max_scores)(
-        u, v, b, bucket=bucket)
-    torch.cuda.synchronize()
-    for p, q in zip(plain, kern):
-        if p.shape != q.shape or p.dtype != q.dtype:
-            fail(f"kernel output {q.shape}/{q.dtype} != plain "
-                 f"{p.shape}/{p.dtype}")
-    B, I = u.shape[0], v.shape[0]
-    L = plain[0].shape[1]
-    full = u.float() @ v.float().T
-    if b is not None:
-        full = full + b.reshape(-1)
-    full = torch.cat([full, full.new_full((B, L * bucket_of(bt, v, bucket)
-                                            - I), -1e30)], dim=1)
-
-    def at(ids):
-        return full.gather(1, ids.long())
-
-    vals_p, vals_k = plain[0::2], kern[0::2]
-    err = 0.0
-    for vp, vk in zip(vals_p, vals_k):
-        fin = torch.isfinite(vp)
-        if not torch.equal(fin, torch.isfinite(vk)):
-            fail("kernel and plain disagree on which values are finite")
-        if fin.any():
-            err = max(err, (vp[fin] - vk[fin]).abs().max().item())
-            if not near(vk[fin], vp[fin]).all():
-                fail(f"values differ beyond rtol=atol={TOL}: max {err}")
-    v1p, i1p = plain[0], plain[1]
-    v1k, i1k = kern[0], kern[1]
-    # every kernel id lies in the bucket of its column
-    col = torch.arange(L, device=u.device)[None, :]
-    item_block = 128 * bucket_of(bt, v, bucket)
-    ids_k = kern[1::2]
-    for ik in ids_k:
-        if not ((ik // item_block) * 128 + ik % 128 == col).all():
-            fail("a kernel id lies outside its column's bucket")
-    if not top2:
-        diff = i1k != i1p
-        tie = diff & near(at(i1k), v1p)
-        return err, int((diff & ~tie).sum()), int(tie.sum())
-    v2p, i2p = plain[2], plain[3]
-    v2k, i2k = kern[2], kern[3]
-    same = ((i1k == i1p) & (i2k == i2p)) | ((i1k == i2p) & (i2k == i1p))
-    empty2 = torch.isinf(v2p)           # bucket == 1: slot 2 stays -inf
-    same = same | (empty2 & (i1k == i1p) & (i2k == i2p))
-    diff = ~same
-    tie = diff & near(at(i1k), v1p) & (empty2 | near(at(i2k), v2p))
-    return err, int((diff & ~tie).sum()), int(tie.sum())
-
-
-def bucket_of(bt, v, bucket):
-    return bt.bucket_geometry(v.shape[0], v.shape[1], v.element_size(),
-                              bucket)[0]
-
-
-K1K2_CASES = [
-    # name, B, I, D, dtype, bucket, layout: "" | "row" (the table is a view
-    # one row into its storage: bf16 D = 60 rows of 120 bytes and f32 D =
-    # 50 rows of 200 bytes start 8-byte aligned) | "element" (a view one
-    # element in: 2-byte aligned bf16 rows, 4-byte aligned f32 rows) |
-    # "twins" (member 2m+1 of every bucket repeats member 2m, bias and all:
-    # exact ties inside a bucket, where slot 1 must keep the earlier member)
-    # | "nobias" (item_bias None)
-    ("f32 D=50 ragged", 37, 5_000, 50, "float32", 4, ""),
-    ("bf16 D=64", 70, 20_000, 64, "bfloat16", 16, ""),
-    ("bf16 bucket=1", 9, 1_000, 64, "bfloat16", 1, ""),
-    ("f32 split", 64, 30_000, 64, "float32", 64, ""),
-    ("bf16 D=50 (Dp 64, 100-byte rows)", 64, 20_001, 50, "bfloat16", 16, ""),
-    ("bf16 D=60 view one row in", 50, 9_999, 60, "bfloat16", 8, "row"),
-    ("bf16 D=64 view one element in", 20, 5_000, 64, "bfloat16", 4,
-     "element"),
-    ("bf16 D=64 twin members", 40, 30_000, 64, "bfloat16", 16, "twins"),
-    ("bf16 B=37", 37, 10_000, 64, "bfloat16", 8, ""),
-    # the fp32 route's cp.async ring: ties across slots, every view, no
-    # bias, one slot at D = 384 reused by 8 members, one member a block
-    ("f32 twin members", 40, 30_000, 50, "float32", 16, "twins"),
-    ("f32 D=50 view one row in", 50, 9_999, 50, "float32", 8, "row"),
-    ("f32 view one element in", 20, 5_000, 64, "float32", 4, "element"),
-    ("f32 no bias", 256, 30_000, 50, "float32", 64, "nobias"),
-    ("f32 D=384", 256, 20_000, 384, "float32", 16, ""),
-    ("f32 bucket=1", 9, 1_000, 50, "float32", 1, ""),
-    ("amazon K1 shape", BATCH, AMAZON["items"], 64, "bfloat16", 64, ""),
-    ("amazon K2 shape", BATCH, AMAZON["items"], 64, "bfloat16", 256, ""),
-    # the buckets `pallas` (K1) and `pallas2` (K2) pick at CiteULike
-    ("citeulike K1 shape", BATCH, CITEULIKE["items"], 50, "float32", 2, ""),
-    ("citeulike K2 shape", BATCH, CITEULIKE["items"], 50, "float32", 16, ""),
-    # VBPR's D = 100: bf16 rows of 200 bytes (Dp 112, 240-byte smem rows),
-    # every other row 8-byte aligned, at the buckets `pallas` (32) and
-    # `pallas2` (128) pick at Tradesy; fp32 rows of 400 bytes
-    ("tradesy K1 shape", BATCH, TRADESY["items"], 100, "bfloat16", 32, ""),
-    ("tradesy K2 shape", BATCH, TRADESY["items"], 100, "bfloat16", 128, ""),
-    ("bf16 D=100 twin members", 40, 30_000, 100, "bfloat16", 16, "twins"),
-    ("bf16 D=100 view one row in", 50, 9_999, 100, "bfloat16", 8, "row"),
-    ("f32 D=100", 64, 20_000, 100, "float32", 8, ""),
-    # the LastFM serving shapes (phase 10) at the buckets `pallas` (2) and
-    # `pallas2` (8) pick there: fp32 D = 32 (128-byte rows) with a bias,
-    # and D = 50 with none (YouTubeRec's head)
-    ("lastfm K1 shape", BATCH, LASTFM["items"], 32, "float32", 2, ""),
-    ("lastfm K2 shape", BATCH, LASTFM["items"], 32, "float32", 8, ""),
-    ("lastfm no-bias K1 shape", BATCH, LASTFM["items"], 50, "float32", 2,
-     "nobias"),
-    ("lastfm no-bias K2 shape", BATCH, LASTFM["items"], 50, "float32", 8,
-     "nobias"),
-    ("f32 D=32 twin members", 40, 30_000, 32, "float32", 16, "twins"),
-    # ItrMLP's Netflix serving shape (phase 11) at the buckets `pallas` (2)
-    # and `pallas2` (16) pick there: fp32 D = 20, 80-byte rows, with a
-    # bias; twins and rows 4-byte aligned at D = 20
-    ("netflix K1 shape", BATCH, NETFLIX["items"], 20, "float32", 2, ""),
-    ("netflix K2 shape", BATCH, NETFLIX["items"], 20, "float32", 16, ""),
-    ("f32 D=20 twin members", 40, 30_000, 20, "float32", 16, "twins"),
-    ("f32 D=20 view one element in", 20, 5_000, 20, "float32", 4,
-     "element"),
-    # phase 12's row shards of the Amazon catalog at the buckets `pallas`
-    # and `pallas2` pick there: m = 2 (225,083 rows) and m = 4 (112,542,
-    # the last shard's two pad rows zero at bias -1e30)
-    ("amazon shard m=2 K1 shape", BATCH, SHARD2, 64, "bfloat16", 32, ""),
-    ("amazon shard m=2 K2 shape", BATCH, SHARD2, 64, "bfloat16", 128, ""),
-    ("amazon shard m=4 K1 shape", BATCH, SHARD4, 64, "bfloat16", 16, "pad2"),
-    ("amazon shard m=4 K2 shape", BATCH, SHARD4, 64, "bfloat16", 64, "pad2"),
-    # phase 12 (g)'s row shards of RNNRec's LastFM output layer over m = 2
-    # (7,299 rows, fp32 D = 32) at the buckets `pallas` (1) and `pallas2`
-    # (4) pick there
-    ("lastfm shard m=2 K1 shape", BATCH, LASTFM_SHARD2, 32, "float32", 1,
-     ""),
-    ("lastfm shard m=2 K2 shape", BATCH, LASTFM_SHARD2, 32, "float32", 4,
-     ""),
-]
-
-
-def k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket, layout):
-    """(u, v, b) on the card for one K1/K2 case, laid out as it says."""
-    dt = getattr(torch, dtype)
-    u = torch.randn(B, D, generator=gen, device=dev).to(dt)
-    v = torch.randn(I, D, generator=gen, device=dev)
-    b = torch.randn(I, generator=gen, device=dev)
-    if layout == "twins":
-        blk = 128 * bt.bucket_geometry(I, D, torch.finfo(dt).bits // 8,
-                                       bucket)[0]
-        t = torch.arange(I, device=dev)
-        odd = ((t % blk) // 128) % 2 == 1
-        v[odd] = v[t[odd] - 128]
-        b[odd] = b[t[odd] - 128]
-    if layout == "pad2":                # pad_rows' zero rows, never picked
-        v[-2:] = 0.0
-        b[-2:] = -1e30
-    v = v.to(dt)
-    if layout == "row":
-        v = torch.cat([v[:1], v])[1:]
-    elif layout == "element":
-        flat = torch.empty(I * D + 1, device=dev, dtype=dt)
-        flat[1:] = v.reshape(-1)
-        v = flat[1:].view(I, D)
-    if layout in ("row", "element") and v.data_ptr() % 16 == 0:
-        fail(f"{layout} view is 16-byte aligned")
-    return u, v, None if layout == "nobias" else b
-
-
-def phase_compare(torch, bt, gen, dev):
-    errs = {"K1": 0.0, "K2": 0.0}
-    report = []
-    for name, B, I, D, dtype, bucket, layout in K1K2_CASES:
-        u, v, b = k1k2_inputs(torch, bt, gen, dev, B, I, D, dtype, bucket,
-                              layout)
-        for kname, top2 in (("K1", False), ("K2", True)):
-            err, bad, ties = compare_kernel(torch, bt, u, v, b, bucket, top2)
-            errs[kname] = max(errs[kname], err)
-            line = dict(case=name, kernel=kname, B=B, I=I, D=D, dtype=dtype,
-                        bucket=bucket,
-                        route="mma-bf16" if dtype == "bfloat16"
-                        else F32_VARIANT,
-                        row_address_mod_16=v.data_ptr() % 16,
-                        max_abs_err=err, id_mismatch_not_tie=bad,
-                        id_mismatch_tie=ties)
-            if layout == "twins":
-                line["twins_earliest"] = check_twins(torch, bt, u, v, b,
-                                                     bucket, top2, name)
-            print("compare", json.dumps(line), flush=True)
-            report.append(line)
-            if bad:
-                fail(f"{kname} {name}: {bad} id mismatches that are not "
-                     "near-ties")
-    return errs, report
-
-
-def check_twins(torch, bt, u, v, b, bucket, top2, name):
-    """With member 2m+1 a copy of member 2m, slot 1 must name the even
-    member of its pair (the earlier one, strict `>`), and K2's slot 2 its
-    twin, at the same value."""
-    out = (bt.bucket_max2_scores if top2 else bt.bucket_max_scores)(
-        u, v, b, bucket=bucket)
-    torch.cuda.synchronize()
-    blk = 128 * bucket_of(bt, v, bucket)
-    v1, i1 = out[0], out[1].long()
-    real = v1 > -1e29
-    if (((i1 % blk) // 128 % 2 == 1) & real).any():
-        fail(f"{name}: slot 1 kept the later twin of a tie")
-    if top2:
-        v2, i2 = out[2], out[3].long()
-        has = real & (i1 + 128 < v.shape[0])
-        if not ((i2 == i1 + 128) & (v2 == v1))[has].all():
-            fail(f"{name}: slot 2 is not the twin of slot 1")
-    return True
-
-
-K3_CASES = [
-    # name, B, I, D, dtype, k, layout: "" | "dup" (item 3j+1 repeats item
-    # 3j: exact ties) | "offset" (the table is a view one row into its
-    # storage, so it does not start on a 16-byte boundary) | "zero" (zero
-    # table and bias: all scores equal, so more than C candidates pass and
-    # the final kernel rescans; the answer is ids 0 .. k-1) | "nobias"
-    # (item_bias None)
-    ("K3 f32 D=50 k=100 ragged", 37, 5_003, 50, "float32", 100, ""),
-    ("K3 bf16 D=64 k=1", 70, 20_001, 64, "bfloat16", 1, ""),
-    ("K3 f32 D=64 k=128", 33, 12_345, 64, "float32", 128, ""),
-    ("K3 bf16 D=50 k=129", 9, 7_777, 50, "bfloat16", 129, ""),
-    ("K3 f32 D=64 k=1000", 70, 30_000, 64, "float32", 1000, ""),
-    ("K3 f32 D=50 k==I", 11, 300, 50, "float32", 300, ""),
-    ("K3 bf16 D=64 duplicated rows", 40, 9_000, 64, "bfloat16", 100, "dup"),
-    ("K3 f32 D=50 offset view", 20, 3_001, 50, "float32", 100, "offset"),
-    ("K3 bf16 D=50 offset view", 20, 3_001, 50, "bfloat16", 100, "offset"),
-    ("K3 f32 D=50 all-equal scores", 30, 5_000, 50, "float32", 100, "zero"),
-    ("K3 bf16 D=64 I < 8*Kb", 25, 700, 64, "bfloat16", 100, ""),
-    ("K3 citeulike shape", BATCH, CITEULIKE["items"], 50, "float32", K, ""),
-    ("K3 amazon shape", BATCH, AMAZON["items"], 64, "bfloat16", K, ""),
-    # bf16 rows of 200 bytes: tau's scalar item_score path
-    ("K3 tradesy shape", BATCH, TRADESY["items"], 100, "bfloat16", K, ""),
-    # phase 10's: fp32 D = 32 (128-byte rows) with a bias; D = 50 without
-    ("K3 lastfm shape", BATCH, LASTFM["items"], 32, "float32", K, ""),
-    ("K3 lastfm no-bias shape", BATCH, LASTFM["items"], 50, "float32", K,
-     "nobias"),
-    # phase 11's: fp32 D = 20 (80-byte rows, five 16-byte chunks) with a
-    # bias; and D = 20 with B and I off the kernel's tiling
-    ("K3 netflix shape", BATCH, NETFLIX["items"], 20, "float32", K, ""),
-    ("K3 f32 D=20 k=100", 37, 5_003, 20, "float32", 100, ""),
-]
-
-
-def check_topk(torch, vals, ids, want_v, want_i, full, what):
-    """(max_abs_err, non-tie id mismatches, tie id mismatches) of a top-k
-    against a reference top-k of the same fp32 scores `full` [B, I]: shape
-    and dtype, finite values within rtol=atol=TOL, ids in range, best
-    first, each value the score at its id, and ids equal except where both
-    picks score within TOL."""
-    if vals.shape != want_v.shape or ids.dtype != torch.int32 \
-            or vals.dtype != torch.float32:
-        fail(f"{what}: output {tuple(vals.shape)}/{vals.dtype}/{ids.dtype}")
-    if not torch.isfinite(vals).all():
-        fail(f"{what}: non-finite values")
-    if ids.min() < 0 or ids.max() >= full.shape[1]:
-        fail(f"{what}: an id lies outside the catalog")
-    if (vals[:, 1:] > vals[:, :-1]).any():
-        fail(f"{what}: values are not best first")
-    err = (vals - want_v).abs().max().item()
-    if not near(vals, want_v).all():
-        fail(f"{what}: values differ beyond rtol=atol={TOL}: max {err}")
-    at = full.gather(1, ids.long())
-    if not near(at, vals).all():
-        fail(f"{what}: a value is not the fp32 score at its id")
-    diff = ids != want_i.to(ids.dtype)
-    tie = diff & near(at, want_v)
-    return err, int((diff & ~tie).sum()), int(tie.sum())
-
-
-def phase_compare_k3(torch, tk, gen, dev):
-    """K3 (ops.fused_score_topk) against fused_topk_plain on card tensors."""
-    err_max, report = 0.0, []
-    for name, B, I, D, dt, k, layout in K3_CASES:
-        dtype = getattr(torch, dt)
-        u = torch.randn(B, D, generator=gen, device=dev).to(dtype)
-        v = torch.randn(I, D, generator=gen, device=dev)
-        b = torch.randn(I, generator=gen, device=dev)
-        dup = layout == "dup"
-        if dup:     # item 3j+1 repeats item 3j, bias and all: exact ties
-            n = v[1::3].shape[0]
-            v[1::3] = v[0::3][:n]
-            b[1::3] = b[0::3][:n]
-        if layout == "zero":
-            v.zero_()
-            b.zero_()
-        v = v.to(dtype).contiguous()
-        if layout == "offset":
-            v = torch.cat([v[:1], v])[1:]
-            if v.data_ptr() % 16 == 0:
-                fail(f"{name}: the view is 16-byte aligned")
-        if layout == "nobias":
-            b = None
-        want_v, want_i = tk.fused_topk_plain(u, v, b, k)
-        vals, ids = tk.fused_score_topk(u, v, b, k)
-        torch.cuda.synchronize()
-        count = tk.fused_score_topk.last_count
-        full = tk.dot_scores(u, v, b)
-        err, bad, ties = check_topk(torch, vals, ids, want_v, want_i, full,
-                                    name)
-        err_max = max(err_max, err)
-        plan = tk.fused_geometry(
-            B, I, D, k, v.element_size(),
-            torch.cuda.get_device_properties(dev).multi_processor_count)
-        line = dict(case=name, kernel="K3", B=B, I=I, D=D, dtype=dt, k=k,
-                    **plan._asdict(), count_min=int(count.min()),
-                    count_max=int(count.max()),
-                    rescan_users=int((count > plan.C).sum()),
-                    max_abs_err=err, id_mismatch_not_tie=bad,
-                    id_mismatch_tie=ties)
-        if line["count_min"] < min(k, I):
-            fail(f"{name}: a user has {line['count_min']} candidates, fewer "
-                 f"than min(k, I) = {min(k, I)}")
-        if layout == "zero" and (line["rescan_users"] != B or not torch.equal(
-                ids, torch.arange(k, device=dev, dtype=ids.dtype)
-                .expand(B, -1))):
-            fail(f"{name}: not every user took the rescan branch and "
-                 "returned ids 0 .. k-1")
-        if dup:   # the planted twins must resolve to the smaller id
-            twins = (ids % 3 == 1)[:, 1:] & (ids[:, 1:] - 1 != ids[:, :-1])
-            line["twin_after_twin"] = not bool(twins.any())
-            if twins.any():
-                fail(f"{name}: a planted tie did not put the smaller id "
-                     "first")
-        print("compare", json.dumps(line), flush=True)
-        report.append(line)
-        if bad:
-            fail(f"K3 {name}: {bad} id mismatches that are not near-ties")
-    return err_max, report
-
-
-def sparse_adam_inputs(torch, gen, dev, layout, cfg=None):
-    """One table's call of `sparse_adam_apply` at `cfg`'s shapes
-    (`SPARSE_ADAM`): table, mu, nu, rows, write mask, gradient, alpha.
-    layout "flat": the flat dedup's, the live rows sorted at the front
-    (int32) and every pad repeating the last; "partial": the partial
-    path's, live slots scattered over the cap (int64) and each dead slot
-    at a random row, live rows included."""
-    from openrec_tpu_torch.training.optim import _adam_alpha
-    cfg = cfg or SPARSE_ADAM
-    rows, D, cap, live = cfg["rows"], cfg["dim"], cfg["cap"], cfg["live"]
-    table = (torch.rand(rows, D, generator=gen, device=dev) - 0.5) * 0.1
-    mu = torch.randn(rows, D, generator=gen, device=dev) * 1e-3
-    nu = torch.rand(rows, D, generator=gen, device=dev) ** 4 * 1e-4
-    g = torch.randn(cap, D, generator=gen, device=dev) * 1e-2
-    picked = torch.randperm(rows, generator=gen, device=dev)[:live]
-    if layout == "flat":
-        picked = picked.sort().values
-        at = picked[-1:].repeat(cap)
-        at[:live] = picked
-        at = at.to(torch.int32)
-        write = torch.arange(cap, device=dev) < live
-    else:
-        slots = torch.randperm(cap, generator=gen, device=dev)[:live]
-        at = torch.randint(0, rows, (cap,), generator=gen, device=dev)
-        at[slots] = picked
-        write = torch.zeros(cap, dtype=torch.bool, device=dev)
-        write[slots] = True
-    alpha = _adam_alpha(torch.tensor(10, device=dev), cfg["lr"],
-                        cfg["b1"], cfg["b2"])
-    return table, mu, nu, at, write, g, alpha
-
-
-def sparse_adam_hyper(cfg=None):
-    cfg = cfg or SPARSE_ADAM
-    return cfg["b1"], cfg["b2"], cfg["eps"]
-
-
-def phase_compare_sparse_adam(torch, gen, dev):
-    """The sparse-Adam kernel against its plain version at train-zipf's
-    shapes, in the flat and the partial layout, and at dlrm-dcnv2's
-    (D 128, `SPARSE_ADAM_DCN_CHECK`: its rows halved to fit twice) in the
-    flat layout: table, mu and nu must be torch.equal, and the live rows
-    must have moved. Zeroes the kernel's launch counter first and checks
-    it reads one a call; returns (launches counted, report)."""
-    from openrec_tpu_torch import trace
-    from openrec_tpu_torch.ops import sparse_adam as sa
-    counter = KERNEL_COUNTERS["sparse_adam"]
-    trace.count(counter, -trace.counter(counter))
-    report = []
-    for cell, cfg, layout in (("train-zipf", SPARSE_ADAM, "flat"),
-                              ("train-zipf", SPARSE_ADAM, "partial"),
-                              ("dcnv2", SPARSE_ADAM_DCN_CHECK, "flat")):
-        table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
-            torch, gen, dev, layout, cfg)
-        live = at[write].long()
-        before = table.index_select(0, live)
-        want = [t.clone() for t in (table, mu, nu)]
-        hyper = sparse_adam_hyper(cfg)
-        sa.sparse_adam_plain(*want, at, write, g, alpha, *hyper)
-        sa.sparse_adam_apply(table, mu, nu, at, write, g, alpha, *hyper)
-        torch.cuda.synchronize(dev)
-        line = dict(case=f"sparse_adam {cell} {layout}",
-                    kernel="sparse_adam", rows=table.shape[0],
-                    D=table.shape[1], slots=at.shape[0],
-                    live=live.numel(), index=str(at.dtype).split(".")[-1],
-                    equal={n: torch.equal(x, w) for n, x, w in zip(
-                        ("table", "mu", "nu"), (table, mu, nu), want)},
-                    live_rows_moved=int((table.index_select(0, live)
-                                         != before).any(1).sum()))
-        print("compare", json.dumps(line), flush=True)
-        report.append(line)
-        if not all(line["equal"].values()):
-            fail(f"sparse_adam {cell} {layout}: kernel and plain version "
-                 f"differ {line['equal']}")
-        if line["live_rows_moved"] < live.numel() // 2:
-            fail(f"sparse_adam {cell} {layout}: only "
-                 f"{line['live_rows_moved']} of {live.numel()} live rows "
-                 "moved")
-        del table, mu, nu, want, before, g
-        torch.cuda.empty_cache()
-    launches = trace.counter(counter)
-    if launches != len(report):
-        fail(f"sparse_adam: {launches} launches counted for "
-             f"{len(report)} calls")
-    return launches, report
-
-
-# ------------------------------------------------------------ phase 3
-
-def phase_serve(torch, port, cfg, rng, dev):
-    from openrec_tpu_torch.metrics.ranking import (AUC, NDCG, Precision,
-                                                   Recall, ids_to_masks)
-    from openrec_tpu_torch.modules.embedding import embedding_lookup
-    bt = port.ops.bucketed_topk
-    users, items, dim = cfg["users"], cfg["items"], cfg["dim"]
-    t0 = time.perf_counter()
-    np_params = make_params(rng, users, items, dim)
-    flat = port.convert.params_from_jax(np_params, device=dev)
-    model = port.BPR(users, items, dim, dim, device=dev)
-    model.load_params(flat)
-    serve_dtype = getattr(torch, cfg["dtype"])
-    scorer = port.CachedDotProductScorer(
-        model, users, items,
-        extract_user_vecs=lambda p, i: embedding_lookup(p["user_embed"], i),
-        extract_item_vecs=lambda p, i: embedding_lookup(p["item_embed"], i),
-        extract_item_bias=lambda p, i: embedding_lookup(p["item_bias"], i),
-        serve_dtype=serve_dtype, device=dev)
-    params = model.params()
-    scorer.cache(params)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    requests = [rng.integers(0, users, BATCH).astype(np.int64)
-                for _ in range(REQUESTS)]
-    methods = METHODS
-
-    base = launch_counts()
-    results = {m: [] for m in methods}
-    for req in requests:
-        for m in methods:
-            results[m].append(_request(scorer, params, req, m))
-            torch.cuda.synchronize()
-    launches = launch_counts(base)
-    # serving answers through K1/K2; K3 is the training path's retrieval
-    if launches != {"K1": REQUESTS, "K2": REQUESTS, "K3": 0}:
-        fail(f"{cfg['name']}: kernel launches {launches}, want "
-             f"{REQUESTS} of K1 and K2 each and none of K3")
-
-    recall = {}
-    for m in methods:
-        hits = 0
-        for req, (vals, ids), (_, ex_ids) in zip(requests, results[m],
-                                                 results["exact"]):
-            if tuple(vals.shape) != (BATCH, K) or not torch.isfinite(
-                    vals).all():
-                fail(f"{m}: bad output shape/values {tuple(vals.shape)}")
-            if ids.min() < 0 or ids.max() >= items:
-                fail(f"{m}: item id out of range")
-            ref = scorer.serve(params, req).gather(1, ids.long())
-            if not ((vals - ref).abs() <= TOL + TOL * ref.abs()).all():
-                fail(f"{m}: a returned score is not the fp32 score at its "
-                     "id")
-            ex_sorted = torch.sort(ex_ids, dim=1).values
-            found = torch.searchsorted(ex_sorted, ids.to(ex_sorted.dtype))
-            found = found.clamp(max=K - 1)
-            hits += int((ex_sorted.gather(1, found) == ids).sum())
-        recall[m] = hits / (REQUESTS * BATCH * K)
-        floor = TARGETS.get(m, 1.0) - 0.01
-        print(f"{cfg['name']}: recall of {m} vs exact = {recall[m]:.6f} "
-              f"(floor {floor:.3f})", flush=True)
-        if recall[m] < floor:
-            fail(f"{m}: recall {recall[m]} < {floor}")
-
-    # one eval batch on numpy-made id lists, held against the dense
-    # metrics on the same users
-    B_eval, P, E, at = min(64, BATCH), 10, 20, (50, 100)
-    uids = requests[0][:B_eval]
-    pos = np.full((B_eval, P), -1, np.int64)
-    excl = np.full((B_eval, E), -1, np.int64)
-    for r in range(B_eval):
-        n_pos = int(rng.integers(1, P + 1))
-        picks = rng.choice(items, size=n_pos + E, replace=False)
-        pos[r, :n_pos], excl[r] = picks[:n_pos], picks[n_pos:]
-    got = scorer.eval_metrics(params, uids, pos, excl, at=at, chunk=16384)
-    # dense scores from the same chunked matmuls as the eval path, so both
-    # rank bit-identical scores
-    u32 = flat["user_embed"][torch.as_tensor(uids, device=dev)]
-    chunk = 16384
-    pred = torch.cat([port.ops.topk.dot_scores(
-        u32, flat["item_embed"][lo:lo + chunk],
-        flat["item_bias"][lo:lo + chunk]) for lo in range(0, items, chunk)],
-        dim=1)
-    pm, em = ids_to_masks(torch.as_tensor(pos, device=dev),
-                          torch.as_tensor(excl, device=dev), items)
-    want = {"AUC": AUC(pm, pred, em), "Recall": Recall(pm, pred, em, at),
-            "NDCG": NDCG(pm, pred, em, at),
-            "Precision": Precision(pm, pred, em, at)}
-    for key, w in want.items():
-        g = got[key]
-        if g.shape != w.shape or not torch.isfinite(g).all():
-            fail(f"eval {key}: shape {tuple(g.shape)} or non-finite")
-        if not torch.allclose(g, w, rtol=1e-5, atol=1e-6):
-            fail(f"eval {key}: chunked {g} != dense {w}")
-    print(f"{cfg['name']}: eval_metrics AUC mean "
-          f"{got['AUC'].mean().item():.6f} matches the dense metrics",
-          flush=True)
-    latency = measure_requests(torch, scorer, params, rng, users)
-    routes = ordered_routes(torch, port, scorer, params, rng, users,
-                            requests[0], cfg["name"])
-    return {
-        "config": {k: cfg[k] for k in ("users", "items", "dim", "dtype")},
-        "setup_s": setup_s,
-        "launches": launches,
-        "recall_vs_exact": recall,
-        "latency": latency,
-        "ordered_routes": routes,
-        "profile": profile_requests(torch, scorer, params, rng, users,
-                                    latency),
-    }
-
-
-def ordered_routes(torch, port, scorer, params, rng, users, req, name):
-    """`topk_ordered`'s two routes forced on every method's rows: the
-    stable sort of the whole row's order keys (no host check) and the
-    float path (two sorts of [B, k] and one host check). Both must return
-    the same ids on `req`; returns each route's request p50 ms by
-    method."""
-    ot = port.ops.ordered_topk
-    saved, ids, out = ot.SHORT_ROW, {}, {}
-    try:
-        for route, short in (("sort", 1 << 62), ("float", 0)):
-            ot.SHORT_ROW = short
-            ids[route] = {m: _request(scorer, params, req, m)[1]
-                          for m in METHODS}
-            out[route] = {m: v["p50_ms"] for m, v in measure_requests(
-                torch, scorer, params, rng, users).items()}
-    finally:
-        ot.SHORT_ROW = saved
-    for m in METHODS:
-        if not torch.equal(ids["sort"][m], ids["float"][m]):
-            fail(f"{name} {m}: topk_ordered's routes return other ids")
-    print(f"{name}: topk_ordered routes, request p50 ms "
-          f"(SHORT_ROW {saved}) {json.dumps(out)}", flush=True)
-    return out
-
-
-def _request(scorer, params, req, method):
-    return scorer.topk(params, req, k=K, method=method,
-                       recall_target=TARGETS.get(method, 0.99))
-
-
-def measure_requests(torch, scorer, params, rng, users):
-    """Closed loop, one client: each request of BATCH random users is sent
-    when the previous one has returned (synchronised). Median and p90 of
-    TIMED requests after one warm-up (p90 then has 11 samples beyond
-    it)."""
-    out = {}
-    for m in METHODS:
-        ms = []
-        for _ in range(TIMED + 1):
-            req = rng.integers(0, users, BATCH)
-            t = time.perf_counter()
-            _request(scorer, params, req, m)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-        ms = np.asarray(ms[1:])
-        out[m] = {"n": len(ms), "p50_ms": float(np.median(ms)),
-                  "p90_ms": float(np.percentile(ms, 90)),
-                  "requests_per_s": float(1e3 / np.median(ms))}
-    return out
-
-
-def profile_requests(torch, scorer, params, rng, users, latency, n=5):
-    """Device time per request by kernel over n requests under
-    torch.profiler, and the device's idle share of the unprofiled median
-    request time."""
-    from torch.profiler import ProfilerActivity, profile
-    out = {}
-    for m in METHODS:
-        reqs = [rng.integers(0, users, BATCH) for _ in range(n)]
-        _request(scorer, params, reqs[0], m)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for req in reqs:
-                _request(scorer, params, req, m)
-                torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per[e.key] = per.get(e.key, 0.0) \
-                    + e.self_device_time_total / 1e3 / n
-        busy = sum(per.values())
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-        out[m] = {"device_busy_ms": busy,
-                  "idle_share": 1.0 - busy / latency[m]["p50_ms"],
-                  "top_device_ms": {k[:80]: v for k, v in top}}
-    return out
 
 
 # ------------------------------------------------------------ phase 5
@@ -1362,11 +624,6 @@ def phase_train(torch, port, seed, dev):
 
 # ------------------------------------------------------------ phase 6
 
-# Criteo Kaggle's per-table cardinalities (benchmarks/dlrm_throughput.py:
-# 25-27, the facebookresearch/dlrm counts): 33,762,577 rows in 26 tables
-CRITEO_COUNTS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
-                 93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
-                 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
 # __graft_entry__._flagship(): the downscaled Criteo-like layout
 FLAGSHIP = dict(m_spa=16, ln_emb=(1000,) * 20 + (100000,) * 6,
                 ln_bot=(64, 16), ln_top=(128, 64, 1), dim_dense=13,
@@ -1379,26 +636,6 @@ DLRM_RUN = dict(flagship_batch=256, flagship_steps=20, batch=4096, lr=1e-3,
                 sparse_steps=300, dense_steps=20, profiled_steps=5,
                 untouched_sample=10_000, mode_det_steps=10,
                 mode_timed_steps=50)
-# dlrm-kaggle.train-zipf's sparse Adam (portbench/traffic/train-zipf.json,
-# batch 65,536): the 26 tables fused into one of 33,762,577 x 16 fp32
-# rows, 26 x 65,536 id slots, 210,127 of them live (the distinct rows a
-# batch of its Zipf(1.05) ids holds, `openrec.train.unique_rows`); Adam at
-# the sparse step's defaults
-SPARSE_ADAM = dict(rows=sum(CRITEO_COUNTS), dim=KAGGLE["m_spa"],
-                   cap=26 * 65_536, live=210_127, lr=1e-3, b1=0.9,
-                   b2=0.999, eps=1e-7)
-# dlrm-dcnv2.train-multihot's (portbench/configs/dlrm-dcnv2.json, batch
-# 8,192 of 214 ids): one fused table of 26,500,127 x 128 fp32 rows (32
-# float4 chunks a row), 1,753,088 id slots, 714,574 of them live
-# (`openrec.train.unique_rows` of its traced slice)
-SPARSE_ADAM_DCN = dict(SPARSE_ADAM, rows=26_500_127, dim=128,
-                       cap=8_192 * 214, live=714_574)
-# its check holds table, mu and nu twice (kernel and plain version): the
-# whole 40.7 GB state twice does not fit on an 80 GB card, so the check
-# halves the table's rows; the kernel's work depends on the slots, the
-# live rows and D alone
-SPARSE_ADAM_DCN_CHECK = dict(SPARSE_ADAM_DCN, rows=13_250_064)
-
 
 def roc_auc(pred, label):
     """Binary ROC AUC by the rank sum, ties at their mean rank."""
@@ -1830,7 +1067,7 @@ def zoo_serving(torch, port, name, model, dev, rng,
                                          serve_dtype=dt, device=dev)
     requests = [torch.as_tensor(rng.integers(0, U, BATCH), device=dev)
                 for _ in range(REQUESTS)]
-    answers = {m: [_request(scorer, params, r, m) for r in requests]
+    answers = {m: [serve_topk(scorer, params, r, m) for r in requests]
                for m in ("exact", "pallas", "pallas2")}
     out = {"requests": REQUESTS, "recall_vs_exact": {},
            "score_max_abs_err": 0.0}
@@ -3749,8 +2986,6 @@ def itr_run(torch, port, seed, dev, log_dir, run):
     return out
 
 
-# ------------------------------------------------------------ phase 4
-
 # ------------------------------------------------------------ phase 12
 
 PARALLEL = dict(shards=(2, 4), sparse_steps=10, sparse_timed=20, batch=4096,
@@ -4665,14 +3900,16 @@ def time_ms(torch, fn, runs=30, warmup=3):
     return float(np.median(out))
 
 
-def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
-    """K1 (top2 False) or K2 at one shape: CUDA-event median ms, device ms
-    of the kernel (and its split merge) under the profiler, the plain
+def time_bucket_kernel(torch, bt, u, v, b, top2, bucket, what):
+    """K1 (top2 False) or K2 at one shape, first held against its plain
+    version on these tensors (`hold_k1k2`): CUDA-event median ms, device
+    ms of the kernel (and its split merge) under the profiler, the plain
     version's and the library yardstick's ms, and the bound."""
     func = bt.bucket_max2_scores if top2 else bt.bucket_max_scores
     (B, D), I = u.shape, v.shape[0]
     dtype = str(u.dtype).split(".")[-1]
     bucket, _, L = bt.bucket_geometry(I, D, v.element_size(), bucket)
+    err, ties = hold_k1k2(torch, bt, u, v, b, bucket, top2, what)
     ms = time_ms(torch, lambda: func(u, v, b, bucket=bucket))
     profile = profile_device(torch, lambda: func(u, v, b, bucket=bucket),
                              10, ms)
@@ -4696,120 +3933,61 @@ def time_bucket_kernel(torch, bt, u, v, b, top2, bucket):
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "max_abs_err_plain": err,
+            "id_mismatch_tie": ties,
             # SM clock, power draw and temperature right after the timing
             "card_after_timing": clocks, "profile": profile, "shape": shape}
 
 
-def phase_time(torch, bt, gen, dev, errs, launches, compare_report):
+def phase_time(torch, bt, gen, dev):
     """K1's and K2's entries of the kernels line: their numbers at the
     Amazon serving shape (bf16, the tensor-core route), with the
     CiteULike shape (fp32, the CUDA-core route), VBPR's Tradesy shape
     (bf16, D = 100), RNNRec's LastFM shape (fp32, D = 32) and ItrMLP's
     Netflix shape (fp32, D = 20) beside them, and the row shards phase 12
     serves from (Amazon's over m = 2 and 4, LastFM's over m = 2), each at
-    the bucket `bucket_score_topk` picks there for its method's target. The
-    CiteULike, Tradesy, LastFM and Netflix entries' `max_abs_err` is
-    phase 2's at that shape and bucket."""
+    the bucket `bucket_score_topk` picks there for its method's
+    target."""
     def inputs(I, D, dtype):
         u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
         v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05)
         b = torch.randn(I, generator=gen, device=dev) * 0.01
         return u.to(dtype), v.to(dtype), b
 
-    amazon = inputs(AMAZON["items"], AMAZON["dim"], torch.bfloat16)
-    citeulike = inputs(CITEULIKE["items"], CITEULIKE["dim"], torch.float32)
-    tradesy = inputs(TRADESY["items"], TRADESY["dim"], torch.bfloat16)
-    lastfm = inputs(LASTFM["items"], LASTFM["dim"], torch.float32)
-    netflix = inputs(NETFLIX["items"], NETFLIX["dim"], torch.float32)
-    shards = {"amazon_shard2": inputs(SHARD2, AMAZON["dim"], torch.bfloat16),
-              "amazon_shard4": inputs(SHARD4, AMAZON["dim"], torch.bfloat16),
-              "lastfm_shard2": inputs(LASTFM_SHARD2, LASTFM["dim"],
-                                      torch.float32)}
+    shapes = {c["name"]: (c["items"], c)
+              for c in (AMAZON, CITEULIKE, TRADESY, LASTFM, NETFLIX)} | {
+        "amazon_shard2": (SHARD2, AMAZON), "amazon_shard4": (SHARD4, AMAZON),
+        "lastfm_shard2": (LASTFM_SHARD2, LASTFM)}
+    shapes = {name: inputs(I, c["dim"], getattr(torch, c["dtype"]))
+              for name, (I, c) in shapes.items()}
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
             ("K2", True, 143, "_bucket_max2_kernel")):
         method = "pallas2" if top2 else "pallas"
-
-        def bucket_at(cfg):
-            return bt.choose_bucket(cfg["items"], K,
-                                    recall_target=TARGETS[method],
-                                    per_bucket=2 if top2 else 1)
         entry = {
             "name": f"{kname} bucket_max_mma<top{2 if top2 else 1}>",
             "route": "cuda",
             "source": "openrec_tpu_torch/csrc/bucket_max.cu",
             "replaces": f"openrec_tpu/ops/bucketed_topk.py:{line}",
-            "replaces_function": fn_name,
-            "variant": "mma-bf16",
-            "launches": launches[kname],
-            "max_abs_err": errs[kname]}
-        entry.update(time_bucket_kernel(torch, bt, *amazon, top2,
-                                        bucket_at(AMAZON)))
-        entry["citeulike"] = time_bucket_kernel(torch, bt, *citeulike, top2,
-                                                bucket_at(CITEULIKE))
-        entry["citeulike"]["variant"] = F32_VARIANT
-        entry["citeulike"]["max_abs_err"] = next(
-            (c["max_abs_err"] for c in compare_report
-             if c["kernel"] == kname and c["dtype"] == "float32"
-             and c["I"] == CITEULIKE["items"]
-             and c["bucket"] == entry["citeulike"]["shape"]["bucket"]),
-            None)
-        entry["citeulike"]["launches"] = entry["launches_zoo"] = \
-            entry["launches_legacy"] = entry["launches_visual"] = \
-            entry["launches_sequence"] = entry["launches_itr"] = None
-        entry["tradesy"] = time_bucket_kernel(torch, bt, *tradesy, top2,
-                                              bucket_at(TRADESY))
-        entry["tradesy"]["variant"] = "mma-bf16"
-        entry["tradesy"]["max_abs_err"] = next(
-            (c["max_abs_err"] for c in compare_report
-             if c["kernel"] == kname and c["case"].startswith("tradesy")
-             and c["bucket"] == entry["tradesy"]["shape"]["bucket"]), None)
-        entry["tradesy"]["launches"] = None
-        entry["lastfm"] = time_bucket_kernel(torch, bt, *lastfm, top2,
-                                             bucket_at(LASTFM))
-        entry["lastfm"]["variant"] = F32_VARIANT
-        entry["lastfm"]["max_abs_err"] = next(
-            (c["max_abs_err"] for c in compare_report
-             if c["kernel"] == kname and c["case"].startswith("lastfm K")
-             and c["bucket"] == entry["lastfm"]["shape"]["bucket"]), None)
-        entry["lastfm"]["launches"] = None
-        entry["netflix"] = time_bucket_kernel(torch, bt, *netflix, top2,
-                                              bucket_at(NETFLIX))
-        entry["netflix"]["variant"] = F32_VARIANT
-        entry["netflix"]["max_abs_err"] = next(
-            (c["max_abs_err"] for c in compare_report
-             if c["kernel"] == kname and c["case"].startswith("netflix K")
-             and c["bucket"] == entry["netflix"]["shape"]["bucket"]), None)
-        entry["netflix"]["launches"] = None
-        for name, (u, v, b) in shards.items():
-            I = v.shape[0]
+            "replaces_function": fn_name}
+        for name, (u, v, b) in shapes.items():
             t = time_bucket_kernel(torch, bt, u, v, b, top2, bt.choose_bucket(
-                I, K, recall_target=TARGETS[method],
-                per_bucket=2 if top2 else 1))
+                v.shape[0], K, recall_target=TARGETS[method],
+                per_bucket=2 if top2 else 1), f"{kname} {name}")
             t["variant"] = "mma-bf16" if v.dtype == torch.bfloat16 \
                 else F32_VARIANT
-            t["max_abs_err"] = next(
-                (c["max_abs_err"] for c in compare_report
-                 if c["kernel"] == kname and c["I"] == I
-                 and c["bucket"] == t["shape"]["bucket"]), None)
-            t["launches"] = None
-            entry[name] = t
-        entry["launches_parallel"] = None
-        entries.append(entry)
-        for name, t in (("amazon", entry), ("citeulike", entry["citeulike"]),
-                        ("tradesy", entry["tradesy"]),
-                        ("lastfm", entry["lastfm"]),
-                        ("netflix", entry["netflix"]),
-                        ("amazon_shard2", entry["amazon_shard2"]),
-                        ("amazon_shard4", entry["amazon_shard4"]),
-                        ("lastfm_shard2", entry["lastfm_shard2"])):
+            if name == "amazon":
+                entry.update(t)
+            else:
+                entry[name] = t
             print(f"{kname} {name} ({t['variant']}, bucket "
                   f"{t['shape']['bucket']}): {t['ms']:.4f} ms by events, "
                   f"{t['device_ms']:.4f} ms device (library "
                   f"{t['library_ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
-                  f"{t['bound_ms']:.4f})", flush=True)
+                  f"{t['bound_ms']:.4f}); max |err| against plain "
+                  f"{t['max_abs_err_plain']:.3g}", flush=True)
+        entries.append(entry)
     return entries
 
 
@@ -4838,14 +4016,16 @@ def time_k3_stages(torch, tk, u, v, b, runs=30, warmup=3):
     return {name: float(np.median(x)) for name, x in zip(tk.STAGES, ms)}
 
 
-def time_k3(torch, tk, gen, dev, B, I, D, dtype):
-    """K3 at one shape: kernel, plain version and library yardstick times
+def time_k3(torch, tk, gen, dev, B, I, D, dtype, what):
+    """K3 at one shape, first held against its plain version on these
+    tensors (`hold_k3`): kernel, plain version and library yardstick times
     (CUDA-event medians), its four stages, device time by kernel under
     the profiler, and the bound for this shape."""
     dt = getattr(torch, dtype)
     u = (torch.rand(B, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
     v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05).to(dt)
     b = torch.randn(I, generator=gen, device=dev) * 0.01
+    _, _, _, err, ties = hold_k3(torch, tk, u, v, b, K, what)
     ms = time_ms(torch, lambda: tk.fused_score_topk(u, v, b, K))
     stages_ms = time_k3_stages(torch, tk, u, v, b)
     plain_ms = time_ms(torch, lambda: tk.fused_topk_plain(u, v, b, K),
@@ -4867,71 +4047,49 @@ def time_k3(torch, tk, gen, dev, B, I, D, dtype):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "stages_ms": stages_ms,
+            "max_abs_err_plain": err, "id_mismatch_tie": ties,
             "profile": profile, "card_after_timing": clocks,
             "shape": {"B": B, "I": I, "D": D, "dtype": dtype, "k": K,
                       **plan._asdict()}}
 
 
-def phase_time_k3(torch, tk, gen, dev, err, amazon_launches,
-                  compare_report):
+def phase_time_k3(torch, tk, gen, dev):
     """K3's entry of the kernels line: its numbers at the CiteULike
     retrieval shape of phase 5 (fp32 tables), with the Amazon serving
     shape (bf16), VBPR's Tradesy shape (bf16, D = 100), RNNRec's LastFM
     shape (fp32, D = 32) and ItrMLP's Netflix shape (fp32, D = 20)
-    beside them. `launches` is filled in by phase 5, the Tradesy entry's
-    by phase 9, the LastFM entry's by phase 10, the Netflix entry's by
-    phase 11; `amazon_launches` is K3's count over phase 3's Amazon
-    requests."""
+    beside them."""
     entry = {"name": "K3 fused_topk (K1 bound pass, tau, filter, final)",
              "route": "cuda",
              "source": "openrec_tpu_torch/csrc/fused_topk.cu",
              "replaces": "openrec_tpu/ops/topk.py:58",
-             "replaces_function": "_fused_topk_kernel",
-             "launches": None, "launches_zoo": None,
-             "launches_legacy": None, "launches_visual": None,
-             "launches_sequence": None, "launches_itr": None,
-             "launches_parallel": None, "max_abs_err": err}
-    entry.update(time_k3(torch, tk, gen, dev, BATCH, CITEULIKE["items"],
-                         CITEULIKE["dim"], "float32"))
-    entry["amazon"] = time_k3(torch, tk, gen, dev, BATCH, AMAZON["items"],
-                              AMAZON["dim"], "bfloat16")
-    entry["amazon"]["launches"] = amazon_launches
-    entry["tradesy"] = time_k3(torch, tk, gen, dev, BATCH, TRADESY["items"],
-                               TRADESY["dim"], "bfloat16")
-    entry["tradesy"]["launches"] = None
-    entry["tradesy"]["max_abs_err"] = next(
-        (c["max_abs_err"] for c in compare_report
-         if c["case"] == "K3 tradesy shape"), None)
-    entry["lastfm"] = time_k3(torch, tk, gen, dev, BATCH, LASTFM["items"],
-                              LASTFM["dim"], "float32")
-    entry["lastfm"]["launches"] = None
-    entry["lastfm"]["max_abs_err"] = next(
-        (c["max_abs_err"] for c in compare_report
-         if c["case"] == "K3 lastfm shape"), None)
-    entry["netflix"] = time_k3(torch, tk, gen, dev, BATCH, NETFLIX["items"],
-                               NETFLIX["dim"], "float32")
-    entry["netflix"]["launches"] = None
-    entry["netflix"]["max_abs_err"] = next(
-        (c["max_abs_err"] for c in compare_report
-         if c["case"] == "K3 netflix shape"), None)
-    for name, t in (("citeulike", entry), ("amazon", entry["amazon"]),
-                    ("tradesy", entry["tradesy"]),
-                    ("lastfm", entry["lastfm"]),
-                    ("netflix", entry["netflix"])):
-        print(f"K3 {name}: {t['ms']:.4f} ms (library {t['library_ms']:.4f}, "
-              f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f}); "
-              "stages " + json.dumps(t["stages_ms"]), flush=True)
+             "replaces_function": "_fused_topk_kernel"}
+    for cfg in (CITEULIKE, AMAZON, TRADESY, LASTFM, NETFLIX):
+        t = time_k3(torch, tk, gen, dev, BATCH, cfg["items"], cfg["dim"],
+                    cfg["dtype"], f"K3 {cfg['name']}")
+        if cfg is CITEULIKE:
+            entry.update(t)
+        else:
+            entry[cfg["name"]] = t
+        print(f"K3 {cfg['name']}: {t['ms']:.4f} ms (library "
+              f"{t['library_ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
+              f"{t['bound_ms']:.4f}); max |err| against plain "
+              f"{t['max_abs_err_plain']:.3g}; stages "
+              + json.dumps(t["stages_ms"]),
+              flush=True)
     return entry
 
 
-def time_sparse_adam_at(torch, gen, dev, cfg):
-    """One shape's timing of the sparse-Adam kernel in the flat layout:
-    CUDA-event median ms, device ms under the profiler, the plain
-    version's ms and the bytes bound."""
+def time_sparse_adam_at(torch, gen, dev, cfg, what):
+    """One shape's timing of the sparse-Adam kernel in the flat layout,
+    first held against its plain version on this state
+    (`hold_sparse_adam`): CUDA-event median ms, device ms under the
+    profiler, the plain version's ms and the bytes bound."""
     from openrec_tpu_torch.ops import sparse_adam as sa
     table, mu, nu, at, write, g, alpha = sparse_adam_inputs(
         torch, gen, dev, "flat", cfg)
     args = (table, mu, nu, at, write, g, alpha, *sparse_adam_hyper(cfg))
+    hold_sparse_adam(torch, sa, args, what)
     ms = time_ms(torch, lambda: sa.sparse_adam_apply(*args))
     profile = profile_device(torch, lambda: sa.sparse_adam_apply(*args), 10,
                              ms)
@@ -4952,117 +4110,49 @@ def time_sparse_adam_at(torch, gen, dev, cfg):
                       "index": str(at.dtype).split(".")[-1]}}
 
 
-def time_sparse_adam(torch, gen, dev, launches, compare_report):
+def time_sparse_adam(torch, gen, dev):
     """`sparse_adam`'s entry of the kernels line, at train-zipf's shapes
     (`SPARSE_ADAM`), with a `dcnv2` entry at dlrm-dcnv2's whole table
-    (`SPARSE_ADAM_DCN`, D 128): each `time_sparse_adam_at`. `launches` is
-    phase 2's count (`launches_dlrm` is filled in by phase 6)."""
+    (`SPARSE_ADAM_DCN`, D 128): each `time_sparse_adam_at`."""
     entry = {"name": "sparse_adam (the sparse step's keras Adam, live rows "
                      "written back)",
              "route": "cuda",
              "source": "openrec_tpu_torch/csrc/sparse_adam.cu",
-             "replaces": None, "replaces_function": None,
-             "launches": launches, "launches_dlrm": None,
-             "equal_to_plain": [c["equal"] for c in compare_report
-                                if c.get("kernel") == "sparse_adam"] or None}
-    entry.update(time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM))
+             "replaces": None, "replaces_function": None}
+    entry.update(time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM,
+                                     "sparse_adam train-zipf"))
     torch.cuda.empty_cache()
-    entry["dcnv2"] = time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM_DCN)
+    entry["dcnv2"] = time_sparse_adam_at(torch, gen, dev, SPARSE_ADAM_DCN,
+                                         "sparse_adam dcnv2")
     for name, t in (("train-zipf", entry), ("dcnv2", entry["dcnv2"])):
         print(f"sparse_adam {name}: {t['ms']:.4f} ms (device "
               f"{t['device_ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
-              f"{t['bound_ms']:.4f})", flush=True)
+              f"{t['bound_ms']:.4f}); equal to plain", flush=True)
     return entry
 
-# ------------------------------------------------------------ phase 13
 
-# the view gradient at the training cells' shapes, one batch of each
-# cell's ids: train-zipf's 26 x 65,536 Zipf(1.05) ids over Criteo-Kaggle's
-# tables into the flat dedup's [1,703,936, 16] view, and train-multihot's
-# 8,192 examples of 214 ids in MLPerf's 26 bags into a [1,753,088, 128]
-# view (MLPerf DLRM-DCNv2's row counts and bag sizes; each bag's first id
-# Zipf(1.05), its others uniform over the table's rows)
-DCN_COUNTS = (5_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
-              5_000_000, 383_495, 405_282, 10, 2_209, 11_938, 155, 4, 976,
-              14, 5_000_000, 5_000_000, 5_000_000, 590_152, 12_973, 108, 36)
-DCN_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
-            100, 27, 10, 3, 1, 1)
-VIEW_GRAD = {
-    "train-zipf": dict(ln_emb=CRITEO_COUNTS, bags=None, D=16, batch=65_536,
-                       zipf=1.05),
-    "train-multihot": dict(ln_emb=DCN_COUNTS, bags=DCN_BAGS, D=128,
-                           batch=8_192, zipf=1.05)}
-
-
-def zipf_ids(torch, count, n, exponent, gen, dev):
-    """n ids in [0, count): rank r (0-based) with probability proportional
-    to (r + 1)**-exponent, by inverse transform over the exact CDF, mapped
-    through a seeded permutation of the rows."""
-    ranks = torch.arange(1, count + 1, dtype=torch.float64, device=dev)
-    cdf = torch.cumsum(ranks.pow_(-exponent), 0)
-    cdf /= cdf[-1].clone()
-    u = torch.rand(n, dtype=torch.float64, device=dev, generator=gen)
-    r = torch.searchsorted(cdf, u).clamp_(max=count - 1)
-    return torch.randperm(count, device=dev, generator=gen)[r]
-
-
-def view_grad_inputs(torch, dev, seed, cell):
-    """One batch of `cell`'s ids through the flat dedup, as the sparse step
-    makes them: {grad (of the lookups, or of the bags), positions, cap,
-    order (the dedup's), bag (None for lookups), offsets, live}; the
-    gradient drawn at 1e-3 scale."""
-    from openrec_tpu_torch.ops import view_grad as vg
-    from openrec_tpu_torch.training import sparse as tsparse
-    shape = VIEW_GRAD[cell]
-    B, counts = shape["batch"], shape["ln_emb"]
-    sizes = shape["bags"] or (1,) * len(counts)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cols = []
-    for count, size in zip(counts, sizes):
-        cols.append(zipf_ids(torch, count, B, shape["zipf"], gen, dev))
-        cols += [torch.randint(0, count, (B,), generator=gen, device=dev)
-                 for _ in range(size - 1)]
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    ids = (torch.stack(cols, 1) + torch.as_tensor(
-        np.repeat(starts, sizes), device=dev)).reshape(-1)
-    n = ids.shape[0]
-    uids, valid, order = tsparse.unique_padded_order(ids, n)
-    # SubTable.positions: every id is in the view, so nothing clamps
-    pos = torch.searchsorted(uids, ids)
-    offsets, bag = None, None
-    if shape["bags"]:
-        first = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]),
-                                device=dev)
-        offsets = (torch.arange(B, device=dev)[:, None] * sum(sizes)
-                   + first[None, :]).reshape(-1)
-        bag = vg.bag_of(offsets, n)
-    rows = n if bag is None else offsets.shape[0]
-    grad = torch.randn(rows, shape["D"], generator=gen, device=dev) * 1e-3
-    return dict(grad=grad, pos=pos, cap=n, order=order, bag=bag,
-                offsets=offsets, live=int(valid.sum()))
-
-
-def view_grad_cell(torch, dev, seed, cell):
-    """Phase 13 at one cell's shape: checks, then timings; returns its
-    record and the kernel calls it made."""
+def time_view_grad_at(torch, dev, seed, cell):
+    """The view gradient at one cell's shape (`VIEW_GRAD`), with the flat
+    dedup's order as the sparse step hands it, first held against its
+    plain version and ATen's backward (`hold_view_grad`): CUDA-event
+    median ms, device ms under the profiler, the stable sort of the
+    positions that a view without that order adds, its plain version and
+    ATen's autograd backward (`index_select`'s, `embedding_bag`'s:
+    `library_ms`), the bytes bound, and the kernel's max |diff| against
+    its plain version."""
     import torch.nn.functional as F
     from openrec_tpu_torch.ops import view_grad as vg
     x = view_grad_inputs(torch, dev, seed, cell)
     grad, pos, cap, order, bag = (x[k] for k in ("grad", "pos", "cap",
                                                  "order", "bag"))
     D = grad.shape[1]
-    calls = [0]
 
     def kernel():
-        calls[0] += 1
         return vg.view_grad(grad, pos, cap, order=order, bag=bag)
 
-    # what a view without the dedup's order adds (`view_grad`'s own sort)
     def sort():
         return torch.sort(pos, stable=True).indices
 
-    got, again = kernel(), kernel()
-    plain = vg.view_grad_plain(grad, pos, cap, bag)
     rows = torch.zeros(cap, D, device=dev, requires_grad=True)
     y = (rows.index_select(0, pos) if bag is None
          else F.embedding_bag(pos, rows, x["offsets"], mode="sum"))
@@ -5070,28 +4160,7 @@ def view_grad_cell(torch, dev, seed, cell):
     def library():
         return torch.autograd.grad(y, rows, grad, retain_graph=True)[0]
 
-    lib = library()
-    torch.cuda.synchronize(dev)
-    # two fp32 sums of a row's L terms in any orders lie within
-    # 2 (L - 1) 2**-24 sum|g| of each other
-    mass = vg.view_grad_plain(grad.abs(), pos, cap, bag)
-    count = torch.bincount(pos, minlength=cap).to(torch.float32)[:, None]
-    bound = 2 * (count - 1).clamp(min=0) * 2.0 ** -24 * mass
-    unread = count[:, 0] == 0
-    rec = {"lookups": pos.shape[0], "cap": cap, "D": D, "live": x["live"],
-           "bags": None if bag is None else x["offsets"].shape[0],
-           "equal_twice": torch.equal(got, again),
-           "within_plain": bool(((got - plain).abs() <= bound).all()),
-           "within_library": bool(((got - lib).abs() <= bound).all()),
-           "max_abs_diff_plain": (got - plain).abs().max().item(),
-           "max_abs_diff_library": (got - lib).abs().max().item(),
-           "unread_rows": int(unread.sum()),
-           "unread_rows_zero": bool((got[unread] == 0).all())}
-    del plain, lib, mass, bound
-    for k in ("equal_twice", "within_plain", "within_library",
-              "unread_rows_zero"):
-        if not rec[k]:
-            fail(f"view_grad {cell}: {k} fails ({rec})")
+    _, diff = hold_view_grad(torch, vg, x, f"view_grad {cell}")
     ms = time_ms(torch, kernel)
     profile = profile_device(torch, kernel, 10, ms)
     sort_ms = time_ms(torch, sort)
@@ -5105,10 +4174,11 @@ def view_grad_cell(torch, dev, seed, cell):
     nbytes = (grad.numel() * 4 + cap * D * 4
               + pos.numel() * (pos.element_size() + 8
                                + (0 if bag is None else 8)))
-    rec.update({
+    rec = {
+        "lookups": pos.shape[0], "cap": cap, "D": D, "live": x["live"],
+        "bags": None if bag is None else x["offsets"].shape[0],
+        "max_abs_diff_plain": diff,
         "ms": ms, "device_ms": profile["device_busy_ms_per_call"],
-        # the stable sort of the positions a view without the dedup's
-        # order adds
         "sort_ms": sort_ms,
         "sort_device_ms": sort_profile["device_busy_ms_per_call"],
         "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -5119,44 +4189,52 @@ def view_grad_cell(torch, dev, seed, cell):
             pos.numel() - grad.shape[0]) * D * 4)) / HBM_BYTES_PER_S * 1e3,
         "profile": profile, "library_profile": lib_profile,
         "card_after_timing": nvidia_smi("clocks.sm,power.draw,"
-                                        "temperature.gpu")})
+                                        "temperature.gpu")}
     bags = "" if bag is None else f" in {rec['bags']} bags"
     print(f"view_grad {cell}: {rec['lookups']} lookups into [{cap}, {D}]"
-          f"{bags}: "
-          f"{ms:.4f} ms (device {rec['device_ms']:.4f}; a sort "
+          f"{bags}: {ms:.4f} ms (device {rec['device_ms']:.4f}; a sort "
           f"{rec['sort_device_ms']:.4f} more without the dedup's order; "
           f"plain {plain_ms:.3f}, library {lib_ms:.4f} / device "
           f"{rec['library_device_ms']:.4f}, bound {rec['bound_ms']:.4f}); "
-          f"max |diff| plain {rec['max_abs_diff_plain']:.3g}, library "
-          f"{rec['max_abs_diff_library']:.3g}; equal twice", flush=True)
-    return rec, calls[0]
+          f"max |diff| plain {rec['max_abs_diff_plain']:.3g}, within two "
+          "fp32 orders of plain and library", flush=True)
+    return rec
 
 
-def phase_view_grad(torch, dev, seed):
-    """Phase 13: `view_grad_cell` at each training cell's shape; zeroes the
-    kernel's launch counter first and checks it reads one a call. Returns
-    the kernels line's `view_grad` entry."""
-    from openrec_tpu_torch import trace
-    counter = KERNEL_COUNTERS["view_grad"]
-    trace.count(counter, -trace.counter(counter))
+def time_view_grad(torch, dev, seed):
+    """`view_grad`'s entry of the kernels line: `time_view_grad_at` at
+    train-zipf's shape, with a `train-multihot` entry."""
     entry = {"name": "view_grad (the gradient of the sparse step's "
                      "gathered-view lookups and bags)",
              "route": "cuda", "source": "openrec_tpu_torch/csrc/view_grad.cu",
              "replaces": None, "replaces_function": None}
-    calls = 0
     for cell in VIEW_GRAD:
-        rec, n = view_grad_cell(torch, dev, seed, cell)
-        calls += n
+        rec = time_view_grad_at(torch, dev, seed, cell)
         if cell == "train-zipf":
             entry.update(rec)
         else:
             entry[cell] = rec
         torch.cuda.empty_cache()
-    entry["launches"] = trace.counter(counter)
-    if entry["launches"] != calls:
-        fail(f"view_grad: {entry['launches']} launches counted for {calls} "
-             "calls")
     return entry
+
+
+def serve_amazon(torch, dev):
+    """BPR at the Amazon catalog (bf16 serve tables) through
+    `CachedDotProductScorer`: one request of BATCH users by each method
+    (`hold_serving`: K1 once a `pallas` request, K2 once a `pallas2`
+    request, K3 never, every score the fp32 score at its id, recall
+    against `exact`) and one `eval_metrics` batch against the dense
+    metrics (`hold_eval_metrics`)."""
+    s = bpr_serving(torch, AMAZON, dev, requests=1)
+    out = {"recall_vs_exact": {}, "launches": {}}
+    for m in METHODS:
+        out["recall_vs_exact"][m], out["launches"][m] = hold_serving(
+            torch, s, m)
+    out["eval_auc_mean"] = hold_eval_metrics(torch, s)
+    print(f"serving amazon: recall vs exact {out['recall_vs_exact']}, "
+          f"launches {out['launches']}; eval_metrics equal to the dense "
+          "metrics", flush=True)
+    return out
 
 
 def main(argv=None):
@@ -5166,8 +4244,8 @@ def main(argv=None):
                     help="write the full record here as JSON")
     ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma list of the phases to run (default all; "
-                    "phase 1 always runs): e.g. 1,2 builds and compares "
-                    "the kernels, 1,2,4 times them too")
+                    "phase 1 always runs): e.g. 1,4 builds and times the "
+                    "kernels")
     args = ap.parse_args(argv)
     phases = {1} | {int(x) for x in args.phases.split(",") if x.strip()}
     if not phases <= set(PHASES):
@@ -5216,49 +4294,25 @@ def main(argv=None):
                 print(ptxas[-1], flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rng = np.random.default_rng(args.seed)
 
     # A skipped phase prints nothing; what it would fill stays null.
-    errs, compare_report = {"K1": None, "K2": None, "K3": None}, []
-    serve, kernels = {}, []
-    sparse_adam, sparse_adam_launches = None, None
+    kernels, serving = [], None
     train = dlrm = zoo = legacy = visual = sequence = itr = parallel = None
-
-    # phase 2
-    if 2 in phases:
-        errs, compare_report = phase_compare(torch, bt, gen, dev)
-        errs["K3"], k3_report = phase_compare_k3(torch, tk, gen, dev)
-        compare_report += k3_report
-        sparse_adam_launches, sa_report = phase_compare_sparse_adam(
-            torch, gen, dev)
-        compare_report += sa_report
-        torch.cuda.empty_cache()
-
-    # phase 3
-    if 3 in phases:
-        for cfg in (AMAZON, CITEULIKE):
-            serve[cfg["name"]] = phase_serve(torch, port, cfg, rng, dev)
-            torch.cuda.empty_cache()
 
     # phase 4
     if 4 in phases:
-        launches = serve["amazon"]["launches"] if serve else dict.fromkeys(
-            ("K1", "K2", "K3"))
-        kernels = phase_time(torch, bt, gen, dev, errs, launches,
-                             compare_report)
-        kernels.append(phase_time_k3(torch, tk, gen, dev, errs["K3"],
-                                     launches["K3"], compare_report))
+        kernels = phase_time(torch, bt, gen, dev)
+        kernels.append(phase_time_k3(torch, tk, gen, dev))
         torch.cuda.empty_cache()
-        # joins the kernels line after the phases that fill K1-K3's counts
-        sparse_adam = time_sparse_adam(torch, gen, dev, sparse_adam_launches,
-                                       compare_report)
+        kernels.append(time_sparse_adam(torch, gen, dev))
         torch.cuda.empty_cache()
+        kernels.append(time_view_grad(torch, dev, args.seed))
+        torch.cuda.empty_cache()
+        serving = serve_amazon(torch, dev)
 
     # phase 5
     if 5 in phases:
         train = phase_train(torch, port, args.seed, dev)
-        if kernels:
-            kernels[-1]["launches"] = train["launches"]["K3"]
         torch.cuda.empty_cache()
 
     # phase 6
@@ -5272,8 +4326,6 @@ def main(argv=None):
         dlrm["phase_s"] = time.perf_counter() - t6
         counted = launch_counts(before, kernels=("sparse_adam", "view_grad"))
         dlrm["sparse_adam_launches"] = counted["sparse_adam"]
-        if sparse_adam:
-            sparse_adam["launches_dlrm"] = dlrm["sparse_adam_launches"]
         # the training path's own launches of the view-gradient kernel:
         # one a table and step of every card trainer of the phase; the
         # flat steps hand it their dedup's order, the other modes sort
@@ -5298,10 +4350,6 @@ def main(argv=None):
         t7 = time.perf_counter()
         zoo = phase_zoo(torch, port, args.seed, dev)
         zoo["phase_s"] = time.perf_counter() - t7
-        for entry in kernels:
-            entry["launches_zoo"] = zoo["launches"][entry["name"][:2]]
-            if "citeulike" in entry:
-                entry["citeulike"]["launches"] = entry["launches_zoo"]
         torch.cuda.empty_cache()
 
     # phase 8
@@ -5309,8 +4357,6 @@ def main(argv=None):
         t8 = time.perf_counter()
         legacy = phase_legacy(torch, port, args.seed, dev)
         legacy["phase_s"] = time.perf_counter() - t8
-        for entry in kernels:
-            entry["launches_legacy"] = legacy["launches"][entry["name"][:2]]
         torch.cuda.empty_cache()
 
     # phase 9
@@ -5318,10 +4364,6 @@ def main(argv=None):
         t9 = time.perf_counter()
         visual = phase_visual(torch, port, args.seed, dev)
         visual["phase_s"] = time.perf_counter() - t9
-        for entry in kernels:
-            entry["launches_visual"] = visual["launches"][entry["name"][:2]]
-            entry["tradesy"]["launches"] = \
-                visual["launches_tradesy_bf16"][entry["name"][:2]]
         torch.cuda.empty_cache()
 
     # phase 10
@@ -5329,11 +4371,6 @@ def main(argv=None):
         t10 = time.perf_counter()
         sequence = phase_sequence(torch, port, args.seed, dev)
         sequence["phase_s"] = time.perf_counter() - t10
-        for entry in kernels:
-            entry["launches_sequence"] = \
-                sequence["launches"][entry["name"][:2]]
-            entry["lastfm"]["launches"] = \
-                sequence["launches_lastfm_d32"][entry["name"][:2]]
         torch.cuda.empty_cache()
 
     # phase 11
@@ -5341,10 +4378,6 @@ def main(argv=None):
         t11 = time.perf_counter()
         itr = phase_itr(torch, port, args.seed, dev)
         itr["phase_s"] = time.perf_counter() - t11
-        for entry in kernels:
-            # every phase-11 launch is at the Netflix shape
-            entry["launches_itr"] = entry["netflix"]["launches"] = \
-                itr["launches"][entry["name"][:2]]
         torch.cuda.empty_cache()
 
     # phase 12
@@ -5352,31 +4385,6 @@ def main(argv=None):
         t12 = time.perf_counter()
         parallel = phase_parallel(torch, port, args.seed, dev)
         parallel["phase_s"] = time.perf_counter() - t12
-        for entry in kernels:
-            kname = entry["name"][:2]
-            if kname == "K3":
-                entry["launches_parallel"] = 0
-                continue
-            entry["launches_parallel"] = \
-                parallel["retrieval"]["a"][kname]["launches"]
-            for m in (2, 4):
-                entry[f"amazon_shard{m}"]["launches"] = \
-                    parallel["retrieval"]["b"][f"m{m}_{kname}"]["launches"]
-            entry["lastfm_shard2"]["launches"] = \
-                parallel["gloo_m2"]["launches"][kname]
-    if sparse_adam:
-        kernels.append(sparse_adam)
-
-    # phase 13
-    if 13 in phases:
-        t13 = time.perf_counter()
-        view_grad = phase_view_grad(torch, dev, args.seed)
-        view_grad["launches_dlrm"] = (dlrm or {}).get("view_grad_launches")
-        view_grad["phase_s"] = time.perf_counter() - t13
-        print(f"phase 13 (view_grad): {view_grad['phase_s']:.1f} s",
-              flush=True)
-        kernels.append(view_grad)
-        torch.cuda.empty_cache()
     total_s = time.perf_counter() - t_start
     print((f"phase 7 (zoo): {zoo['phase_s']:.1f} s; " if zoo else "")
           + (f"phase 8 (legacy): {legacy['phase_s']:.1f} s; " if legacy
@@ -5394,16 +4402,11 @@ def main(argv=None):
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": smi, "phases": sorted(phases), "build_s": build_s,
-             "ptxas": ptxas, "total_s": total_s, "compare": compare_report,
-             "serve": serve, "training": train, "kernels": kernels,
+             "ptxas": ptxas, "total_s": total_s, "training": train,
+             "kernels": kernels, "serving": serving,
              "dlrm": dlrm, "zoo": zoo, "legacy": legacy, "visual": visual,
              "sequence": sequence, "itr": itr, "parallel": parallel},
             indent=1))
-    if serve:
-        print(json.dumps({"requests": {name: {
-            "latency": s["latency"], "recall_vs_exact": s["recall_vs_exact"],
-            "launches": s["launches"], "ordered_routes": s["ordered_routes"]}
-            for name, s in serve.items()}}))
     if train:
         print(json.dumps({"training": {
             "use_native": train["host_fed"]["use_native"],
@@ -5564,6 +4567,7 @@ def main(argv=None):
             "phase_s": parallel["phase_s"]}}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

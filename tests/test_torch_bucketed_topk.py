@@ -16,7 +16,7 @@ import torch
 from openrec_tpu.ops.bucketed_topk import (
     bucket_max2_scores as jax_bucket_max2, bucket_max_scores as jax_bucket_max,
     pallas_score_topk)
-import chip_smoke
+import kernel_cases
 from openrec_tpu_torch.ops.bucketed_topk import (
     bucket_geometry, bucket_max2_scores, bucket_max_scores,
     bucket_score_topk, choose_bucket, f32_plan, mma_plan)
@@ -205,9 +205,10 @@ def test_bucket_one_matches_jax(per_bucket):
         assert (i2 == torch.arange(L, dtype=torch.int32)[None, :]).all()
 
 
-# the bf16 shapes of chip_smoke.py's phase 2, then D x B x bucket
+# the bf16 shapes the card tests check (`kernel_cases.K1K2_CASES`), then
+# D x B x bucket
 PLAN_CASES = [(B, I, D, bucket) for _, B, I, D, dtype, bucket, _ in
-              chip_smoke.K1K2_CASES if dtype == "bfloat16"] + [
+              kernel_cases.K1K2_CASES if dtype == "bfloat16"] + [
     (B, 100_003, D, bucket) for D in (8, 50, 64, 128, 384)
     for B in (1, 37, 256) for bucket in (1, 64, 256)]
 
@@ -247,9 +248,10 @@ def test_mma_plan(B, I, D, bucket):
     assert plan.blocks >= 132 or plan.n_split * 2 > plan.bucket
 
 
-# the fp32 shapes of chip_smoke.py's phase 2, then D x B x bucket
+# the fp32 shapes the card tests check (`kernel_cases.K1K2_CASES`), then
+# D x B x bucket
 F32_PLAN_CASES = [(B, I, D, bucket) for _, B, I, D, dtype, bucket, _ in
-                  chip_smoke.K1K2_CASES if dtype == "float32"] + [
+                  kernel_cases.K1K2_CASES if dtype == "float32"] + [
     (B, 100_003, D, bucket) for D in (1, 8, 50, 64, 128, 384)
     for B in (1, 37, 256) for bucket in (1, 2, 16, 64)]
 # (B, I, D, bucket) -> (stages, smem) at CiteULike: K1 at `pallas`'s bucket
@@ -305,13 +307,13 @@ def test_f32_plan_k3_bound_pass():
     assert (plan.stages, plan.smem, plan.L) == (4, 69_024, k3.L)
 
 
-@pytest.mark.parametrize("case", [c for c in chip_smoke.K1K2_CASES
+@pytest.mark.parametrize("case", [c for c in kernel_cases.K1K2_CASES
                                   if c[0].startswith(("lastfm", "citeulike",
                                                       "tradesy", "amazon",
                                                       "netflix"))],
                          ids=lambda c: c[0])
 def test_serving_cases_sit_at_their_methods_buckets(case):
-    """Phase 2's serving shapes sit at the bucket `bucket_score_topk`
+    """The card tests' serving shapes sit at the bucket `bucket_score_topk`
     picks for the method of their kernel (K1 `pallas` at 0.99, K2
     `pallas2` at 0.995, k 100): LastFM's 2 and 8, Netflix's 2 and 16."""
     name, _, I, _, _, bucket, _ = case

@@ -19,8 +19,13 @@ FORBIDDEN = ("jax", "jaxlib", "openrec_tpu")
 
 
 def _port_files():
+    """The port, the scripts that run it on the card, and the card tests
+    with the modules they and `chip_smoke.py` import."""
     return sorted((ROOT / "openrec_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "nccl_probe.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "nccl_probe.py",
+           ROOT / "tests" / "kernel_cases.py",
+           ROOT / "tests" / "view_grad_model.py"] \
+        + sorted((ROOT / "tests").glob("test_torch_*_card.py"))
 
 
 def _imported_modules(path):

@@ -5,8 +5,16 @@ Bars, all `torch.equal` of table, mu and nu: every call of 5 sparse DLRM
 steps in each dedup mode at D = 16, 20, 50, 64, 100 and 128 (the kernel's
 float4 route where D % 4 == 0, its scalar route at 50), on either block
 of a row-sharded layout, and direct calls with int32 and int64 rows, an
-unaligned gradient and one row that every pad repeats; one launch is
-counted a table and step; a card table that is not float32 raises.
+unaligned gradient and one row that every pad repeats; direct calls at
+the training cells' shapes (`kernel_cases.SPARSE_ADAM`: train-zipf's
+33,762,577 x 16 table, 210,127 live of 1,703,936 slots, in the flat
+dedup's layout and the partial path's; `SPARSE_ADAM_DCN`: dlrm-dcnv2's
+26,500,127 x 128 table in the flat layout), held by
+`kernel_cases.hold_sparse_adam` (live rows `torch.equal`, every other row
+unchanged by an exact checksum, since two whole dlrm-dcnv2 states do not
+fit on the card), where at least half the live rows must move; one
+launch is counted a call, and a table and step; a card table that is
+not float32 raises.
 
 The kernel has no CPU version, so every test needs a CUDA card and skips
 without one. On a machine with a card, from the repository's root:
@@ -21,6 +29,8 @@ and this file imports neither JAX nor the JAX package.)
 import pytest
 import torch
 
+from kernel_cases import (SPARSE_ADAM, SPARSE_ADAM_DCN, hold_sparse_adam,
+                          sparse_adam_hyper, sparse_adam_inputs)
 from openrec_tpu_torch import trace
 from openrec_tpu_torch.models import DLRM
 from openrec_tpu_torch.ops import sparse_adam as sa
@@ -178,6 +188,18 @@ def test_kernel_equals_plain_direct(cuda, index, dim, offset):
     torch.cuda.synchronize(cuda)
     for got, w in zip((table, mu, nu), want):
         assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("cfg,layout", [(SPARSE_ADAM, "flat"),
+                                        (SPARSE_ADAM, "partial"),
+                                        (SPARSE_ADAM_DCN, "flat")],
+                         ids=["train-zipf-flat", "train-zipf-partial",
+                              "dlrm-dcnv2-flat"])
+def test_kernel_equals_plain_at_the_cells_shapes(cuda, cfg, layout):
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = sparse_adam_inputs(torch, gen, cuda, layout, cfg)
+    hold_sparse_adam(torch, sa, (*args, *sparse_adam_hyper(cfg)), layout)
 
 
 @pytest.mark.parametrize("dtype", (torch.float64, torch.bfloat16))

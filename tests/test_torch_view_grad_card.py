@@ -6,14 +6,19 @@ Bars:
   order written in plain PyTorch on the CPU, at D 16, 20, 50 (the scalar
   route) and 128, with int32 and int64 positions;
 - against the plain version (`view_grad_plain`, one lookup after another
-  on the CPU), within the bound of two fp32 summation orders: each of
-  the two sums of a row of L lookups lies within (L - 1) * 2**-24 *
-  sum(|g|) of the exact sum (recursive summation's error bound, every
-  partial sum a sum of the same terms), so they lie within twice that of
-  each other; a row of one lookup is that lookup in both;
-- a row holding half the lookups (many chunks), rows no lookup reads
-  (pads, empty hash slots) exactly zero, fewer lookups than one chunk and
-  none, bags of 1-100 ids as in dlrm-dcnv2.train-multihot;
+  on the CPU), within the bound of two fp32 summation orders, every row
+  no lookup reads exactly zero (`kernel_cases.check_view_grad`);
+- a row holding half the lookups (many chunks), pads and empty hash
+  slots, fewer lookups than one chunk and none, bags of 1-100 ids as in
+  dlrm-dcnv2.train-multihot;
+- at both training cells' shapes, one batch of each cell's ids through
+  the flat dedup, with its order, as the sparse step hands them
+  (`kernel_cases.VIEW_GRAD`: train-zipf's 1,703,936 Zipf(1.05) lookups
+  into a [1,703,936, 16] view; train-multihot's 1,753,088 lookups in
+  212,992 bags into a [1,753,088, 128] view): `kernel_cases.
+  hold_view_grad`, two calls torch.equal, within the two orders' bound of
+  the plain version and of ATen's autograd backward (`index_select`'s,
+  `embedding_bag`'s) on the card, one launch a call;
 - two runs torch.equal; the flat, columns, mixed and hash modes give
   torch.equal gradients to every row over one DLRM step; one launch a
   table and step in `openrec.view_grad.launches`; a gradient that is not
@@ -36,6 +41,8 @@ import pytest
 import torch
 
 import view_grad_model
+from kernel_cases import (VIEW_GRAD, check_view_grad, hold_view_grad,
+                          view_grad_inputs)
 from openrec_tpu_torch import trace
 from openrec_tpu_torch.models import DLRM
 from openrec_tpu_torch.modules.interactions import second_order_interaction
@@ -45,7 +52,6 @@ from openrec_tpu_torch.training import sparse as tsparse
 
 pytestmark = pytest.mark.card
 
-U = 2.0 ** -24
 LN_EMB = (500, 800, 300, 40)
 MODES = ("flat", "columns", "mixed", "hash")
 
@@ -72,11 +78,9 @@ def _held(grad, pos, cap, bag=None):
     got_cpu = got.cpu()
     assert torch.equal(got_cpu, view_grad_model.chunked_sum(
         *cpu[:2], cap, cpu[2], vg.CHUNK))
-    plain = vg.view_grad_plain(cpu[0], cpu[1], cap, cpu[2])
-    mass = vg.view_grad_plain(cpu[0].abs(), cpu[1], cap, cpu[2])
-    count = torch.bincount(cpu[1].long(), minlength=cap).float()[:, None]
-    bound = 2 * (count - 1).clamp(min=0) * U * mass
-    assert bool(((got_cpu - plain).abs() <= bound).all())
+    check_view_grad(torch, vg, got_cpu, *cpu[:2], cap, cpu[2],
+                    {"plain": vg.view_grad_plain(cpu[0], cpu[1], cap,
+                                                 cpu[2])}, "view_grad")
     return got
 
 
@@ -178,6 +182,11 @@ def test_bags_of_1_to_100_ids(cuda, index):
     pooled.backward(grad)
     assert torch.equal(rows.grad, vg.view_grad(
         grad, pos.to(cuda), cap, bag=bag))
+
+
+@pytest.mark.parametrize("cell", tuple(VIEW_GRAD))
+def test_the_cells_shapes(cuda, cell):
+    hold_view_grad(torch, vg, view_grad_inputs(torch, cuda, 0, cell), cell)
 
 
 def test_two_runs_are_equal(cuda):
