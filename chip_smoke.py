@@ -325,9 +325,10 @@ ROOT = Path(__file__).resolve().parent
 # the kernels' shapes and the checks that the card tests share
 sys.path.append(str(ROOT / "tests"))
 from kernel_cases import (  # noqa: E402
-    AMAZON, BATCH, CITEULIKE, CRITEO_COUNTS, K, KERNEL_COUNTERS, LASTFM,
-    LASTFM_SHARD2, METHODS, NETFLIX, REQUESTS, SHARD2, SHARD4, SPARSE_ADAM,
-    SPARSE_ADAM_DCN, TARGETS, TRADESY, VIEW_GRAD, bpr_serving, check_topk,
+    AMAZON, BATCH, BATCH_K10, CITEULIKE, CRITEO_COUNTS, K, KERNEL_COUNTERS,
+    LASTFM, LASTFM_SHARD2, METHODS, NETFLIX, REQUESTS, SHARD2, SHARD4,
+    SPARSE_ADAM, SPARSE_ADAM_DCN, TARGETS, TRADESY, VIEW_GRAD, bpr_serving,
+    check_topk,
     compare_kernel, fail, hold_eval_metrics, hold_k1k2, hold_k3,
     hold_serving, hold_sparse_adam, hold_view_grad, launch_counts, near,
     serve_topk, sparse_adam_hyper, sparse_adam_inputs, view_grad_inputs)
@@ -3900,7 +3901,7 @@ def time_ms(torch, fn, runs=30, warmup=3):
     return float(np.median(out))
 
 
-def time_bucket_kernel(torch, bt, u, v, b, top2, bucket, what):
+def time_bucket_kernel(torch, bt, u, v, b, top2, bucket, what, k=K):
     """K1 (top2 False) or K2 at one shape, first held against its plain
     version on these tensors (`hold_k1k2`): CUDA-event median ms, device
     ms of the kernel (and its split merge) under the profiler, the plain
@@ -3920,16 +3921,20 @@ def time_bucket_kernel(torch, bt, u, v, b, top2, bucket, what):
         u, v, b, bucket, top2=top2), runs=20)
     clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     library_ms = time_ms(torch, lambda: torch.topk(
-        torch.matmul(u, v.T), K, dim=1))
+        torch.matmul(u, v.T), k, dim=1))
     nbytes = (B * D + I * D) * u.element_size() + I * 4 \
         + B * L * (16 if top2 else 8)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * B * I * D / PEAK_OPS[dtype] * 1e3
     shape = {"B": B, "I": I, "D": D, "dtype": dtype, "bucket": bucket,
-             "L": L, "k": K}
-    plan = bt.mma_plan if dtype == "bfloat16" else bt.f32_plan
-    shape.update(plan(B, I, D, bucket, top2, torch.cuda.get_device_properties(
-        u.device).multi_processor_count)._asdict())
+             "L": L, "k": k}
+    sm_count = torch.cuda.get_device_properties(
+        u.device).multi_processor_count
+    if bt.tma_route(v.dtype, D, v.data_ptr()):
+        shape.update(bt.tma_plan(B, I, D, bucket, sm_count)._asdict())
+    else:
+        plan = bt.mma_plan if dtype == "bfloat16" else bt.f32_plan
+        shape.update(plan(B, I, D, bucket, top2, sm_count)._asdict())
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3946,10 +3951,11 @@ def phase_time(torch, bt, gen, dev):
     (bf16, D = 100), RNNRec's LastFM shape (fp32, D = 32) and ItrMLP's
     Netflix shape (fp32, D = 20) beside them, and the row shards phase 12
     serves from (Amazon's over m = 2 and 4, LastFM's over m = 2), each at
-    the bucket `bucket_score_topk` picks there for its method's
-    target."""
-    def inputs(I, D, dtype):
-        u = (torch.rand(BATCH, D, generator=gen, device=dev) * 0.1 - 0.05)
+    the bucket `bucket_score_topk` picks there for its method's target;
+    and K1 at the `batch-k10` cell's request (1,024 Amazon users, top 10,
+    bucket 512 shrunk to 256)."""
+    def inputs(I, D, dtype, B=BATCH):
+        u = (torch.rand(B, D, generator=gen, device=dev) * 0.1 - 0.05)
         v = (torch.rand(I, D, generator=gen, device=dev) * 0.1 - 0.05)
         b = torch.randn(I, generator=gen, device=dev) * 0.01
         return u.to(dtype), v.to(dtype), b
@@ -3960,23 +3966,30 @@ def phase_time(torch, bt, gen, dev):
         "lastfm_shard2": (LASTFM_SHARD2, LASTFM)}
     shapes = {name: inputs(I, c["dim"], getattr(torch, c["dtype"]))
               for name, (I, c) in shapes.items()}
+    batch = inputs(AMAZON["items"], AMAZON["dim"], torch.bfloat16,
+                   B=BATCH_K10)
     entries = []
     for kname, top2, line, fn_name in (
             ("K1", False, 68, "_bucket_max_kernel"),
             ("K2", True, 143, "_bucket_max2_kernel")):
         method = "pallas2" if top2 else "pallas"
         entry = {
-            "name": f"{kname} bucket_max_mma<top{2 if top2 else 1}>",
+            "name": f"{kname} bucket_max<top{2 if top2 else 1}>",
             "route": "cuda",
             "source": "openrec_tpu_torch/csrc/bucket_max.cu",
             "replaces": f"openrec_tpu/ops/bucketed_topk.py:{line}",
             "replaces_function": fn_name}
-        for name, (u, v, b) in shapes.items():
+        runs = [(name, u, v, b, K) for name, (u, v, b) in shapes.items()]
+        if not top2:
+            runs.append(("amazon_batch_k10", *batch, 10))
+        for name, u, v, b, k in runs:
             t = time_bucket_kernel(torch, bt, u, v, b, top2, bt.choose_bucket(
-                v.shape[0], K, recall_target=TARGETS[method],
-                per_bucket=2 if top2 else 1), f"{kname} {name}")
-            t["variant"] = "mma-bf16" if v.dtype == torch.bfloat16 \
-                else F32_VARIANT
+                v.shape[0], k, recall_target=TARGETS[method],
+                per_bucket=2 if top2 else 1), f"{kname} {name}", k)
+            t["variant"] = F32_VARIANT if v.dtype != torch.bfloat16 else (
+                "wgmma-tma-bf16" if bt.tma_route(v.dtype, v.shape[1],
+                                                 v.data_ptr())
+                else "mma-bf16")
             if name == "amazon":
                 entry.update(t)
             else:

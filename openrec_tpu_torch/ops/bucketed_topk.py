@@ -16,11 +16,16 @@ built at first use) and counts the launch in the counter
 `openrec.k1.launches` or `openrec.k2.launches` (`trace.py`); on a CPU
 tensor it runs the plain version (`bucket_max_plain`), which the
 tests hold against the JAX package and `chip_smoke.py` holds against the
-kernel on the card. bf16 tables take the tensor-core route
-(`bucket_max_mma`: mma.sync fed by a cp.async ring; `mma_plan` sizes it),
-fp32 tables the CUDA-core route (`bucket_max_f32_kernel`: fp32 FMAs fed
-by a cp.async ring; `f32_plan` sizes it), which keeps the scores exact in
-fp32.
+kernel on the card. bf16 tables take one of two tensor-core routes, by
+what the inputs are (`tma_route`): a table whose rows are whole 16-byte
+chunks (D a multiple of 8, up to 256) and whose storage starts on a
+16-byte boundary takes `bucket_max_wgmma` (a TMA producer warp and two
+`wgmma` consumer warpgroups on one persistent block an SM; `tma_plan`
+sizes it; each launch also counts `openrec.bucket_max.tma_launches`);
+every other bf16 table takes `bucket_max_mma` (mma.sync fed by a
+cp.async ring; `mma_plan` sizes it). fp32 tables take the CUDA-core
+route (`bucket_max_f32_kernel`: fp32 FMAs fed by a cp.async ring;
+`f32_plan` sizes it), which keeps the scores exact in fp32.
 
 Geometry is the JAX package's (`_bucket_call_setup`, :211-256): the
 `_MAX_VBLOCK_BYTES` shrink rule is a TPU VMEM budget, but it changes
@@ -52,6 +57,11 @@ _PAD_SCORE = -1e30
 _SMEM_LIMIT = 232448             # bytes of shared memory a block can use
 _SMEM_PER_SM = 233472            # an SM's 228 KB, 1 KB of it kept per block
 _MAX_STAGES = 4                  # either route's deepest ring
+TMA_LAUNCHES = "openrec.bucket_max.tma_launches"
+_TMA_MAX_DIM = 256               # TMA route: four 64-column chunks a row
+_TMA_CHUNK_BYTES = 64 * 128      # [64 rows][128 B], one swizzled chunk
+_TMA_UNIT_USERS = 128            # two consumer warpgroups of 64 users
+_TMA_MAX_STAGES = 12
 
 
 def _round_up(x, m):
@@ -103,14 +113,72 @@ def bucket_max_plain(user_vecs, item_table, item_bias, bucket: int,
 
 # ------------------------------------------------------------------ kernels
 
-def _kernel_fn():
+def _kernel_fn(name: str = "openrec_bucket_max"):
     from openrec_tpu_torch.ops import _build
-    fn = _build.load("bucket_max").openrec_bucket_max
+    fn = getattr(_build.load("bucket_max"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p] + [i] * 11 + [p] * 9
+        fn.argtypes = {
+            "openrec_bucket_max": [p, p, p] + [i] * 11 + [p] * 9,
+            "openrec_bucket_max_tma": [p, p, p] + [i] * 10 + [p] * 10,
+            "openrec_bucket_max_tma_map": [p, i, i, p]}[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+_TMA_MAPS: dict = {}      # (table pointer, I, D) -> its TMA map (128 B)
+_TMA_MAPS_KEEP = 64
+_TMA_SCRATCH: dict = {}   # (device, stream, top2) -> workspace, counts
+_SM_COUNT: dict = {}      # device index -> SMs
+
+
+def _tma_map(item_table):
+    """The table's TMA map, made once for each (pointer, I, D): the map is
+    a function of those alone, so a hit is always right."""
+    I, D = item_table.shape
+    key = (item_table.data_ptr(), I, D)
+    m = _TMA_MAPS.get(key)
+    if m is None:
+        m = ctypes.create_string_buffer(128)
+        err = _kernel_fn("openrec_bucket_max_tma_map")(key[0], I, D, m)
+        if err != 0:
+            raise RuntimeError(f"TMA map of the [{I}, {D}] table failed: "
+                               f"driver error {err}")
+        while len(_TMA_MAPS) >= _TMA_MAPS_KEEP:
+            _TMA_MAPS.pop(next(iter(_TMA_MAPS)))
+        _TMA_MAPS[key] = m
+    return m
+
+
+def _tma_scratch(dev, stream, top2: bool, plan: TmaPlan):
+    """Device pointers (ws_v1, ws_i1, ws_v2, ws_i2, counts) of the TMA
+    route's workspace on this stream: for each block 2 slots of 32 x 256
+    entries of each state array (the parts of units cut between blocks),
+    and a count a unit and warpgroup. The kernel leaves the counts zero; a
+    launch of a larger shape gets a larger, zeroed buffer."""
+    key = (dev.index, stream, top2)
+    hit = _TMA_SCRATCH.get(key)
+    if hit is None or hit[1] < plan.grid or hit[2] < plan.units:
+        grid = max(plan.grid, hit[1] if hit else 0)
+        units = max(plan.units, hit[2] if hit else 0)
+        n = 2 * grid * 32 * 256           # entries of one state array
+        ws = torch.empty(n * (4 if top2 else 2), device=dev,
+                         dtype=torch.int32)
+        counts = torch.zeros(2 * units, device=dev, dtype=torch.int32)
+        at = ws.data_ptr()
+        ptrs = [at, at + 4 * n] + ([at + 8 * n, at + 12 * n] if top2
+                                   else [None, None])
+        hit = _TMA_SCRATCH[key] = ((ws, counts), grid, units,
+                                   ptrs + [counts.data_ptr()])
+    return hit[3]
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNT.get(dev.index)
+    if n is None:
+        n = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def _n_split(B: int, L: int, bucket: int, sm_count: int) -> int:
@@ -173,6 +241,57 @@ def mma_plan(B: int, I: int, D: int, bucket: int, top2: bool,
     return MmaPlan(bucket, L, Dp, stages, _BLOCK_USERS, _LANES // _HALVES,
                    _THREADS, n_split, blocks, smem,
                    min(2, _SMEM_PER_SM // (smem + 1024)))
+
+
+def tma_route(dtype, dim: int, data_ptr: int) -> bool:
+    """Whether K1/K2 take the TMA route for a table of this dtype, width
+    and start address: bf16 rows of whole 16-byte chunks (D a multiple of
+    8, at most 256), the table starting on a 16-byte boundary, which a TMA
+    map needs. Every other bf16 table takes `bucket_max_mma`."""
+    return (dtype == torch.bfloat16 and dim % 8 == 0
+            and 8 <= dim <= _TMA_MAX_DIM and data_ptr % 16 == 0)
+
+
+class TmaPlan(NamedTuple):
+    bucket: int              # after the table-block shrink rule
+    L: int                   # buckets per user
+    chunks: int              # 64-column chunks of a row (D zero-padded)
+    stages: int              # member tiles in the TMA ring
+    units: int               # (L/128) x 2 x ceil(B/128): lanes x users
+    steps: int               # units x bucket members
+    grid: int                # persistent blocks, one an SM at most
+    smem: int                # dynamic shared memory bytes per block
+    fill: float              # steps over SMs x the busiest block's steps
+
+
+@functools.lru_cache(maxsize=256)
+def tma_plan(B: int, I: int, D: int, bucket: int,
+             sm_count: int = 132) -> TmaPlan:
+    """Launch plan of the bf16 TMA route for u [B, D], V [I, D].
+
+    A work unit is 128 users x 64 lanes of one grid block, its `bucket`
+    members its steps; block c of the `grid` takes steps [c * steps //
+    grid, (c + 1) * steps // grid), so every round is full to a step, and
+    a unit cut between blocks is merged by the block that finishes it last
+    (no merge pass). Shared memory: a ring of `stages` member tiles
+    (chunks x [64][128 B]), the two warpgroups' user tiles in the same
+    layout, a full and an empty barrier a stage, and 1023 bytes to align
+    the ring to 1,024. The ring is as deep as the card's 227 KB allow, at
+    most 12. Raises where D is not a multiple of 8 in 8 .. 256."""
+    if D % 8 or not 8 <= D <= _TMA_MAX_DIM:
+        raise ValueError(f"embedding dim {D}: the TMA route takes "
+                         f"multiples of 8 up to {_TMA_MAX_DIM}")
+    bucket, _, L = bucket_geometry(I, D, 2, bucket)
+    chunks = -(-D // 64)
+    tile = chunks * _TMA_CHUNK_BYTES
+    stages = min(_TMA_MAX_STAGES, (_SMEM_LIMIT - 1023 - 2 * tile)
+                 // (tile + 16))
+    smem = 1023 + (stages + 2) * tile + 16 * stages
+    units = L // _LANES * _HALVES * -(-B // _TMA_UNIT_USERS)
+    steps = units * bucket
+    grid = min(sm_count, steps)
+    return TmaPlan(bucket, L, chunks, stages, units, steps, grid, smem,
+                   steps / (sm_count * -(-steps // grid)))
 
 
 class F32Plan(NamedTuple):
@@ -259,8 +378,9 @@ def _launch(user_vecs, item_table, item_bias, bucket: int, top2: bool):
     outs = [torch.empty((B, L), device=dev,
                         dtype=torch.float32 if k % 2 == 0 else torch.int32)
             for k in range(n_out)]
-    n_split = _n_split(B, L, bucket, torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    # the TMA route balances its blocks itself and writes no split parts
+    n_split = 1 if tma_route(item_table.dtype, D, item_table.data_ptr()) \
+        else _n_split(B, L, bucket, _sm_count(dev))
     parts = [torch.empty((n_split, B, L), device=dev, dtype=o.dtype)
              for o in outs] if n_split > 1 else []
 
@@ -278,13 +398,29 @@ def _launch_ptrs(user_vecs, item_table, item_bias, top2: bool, bucket: int,
                  n_split: int, L: int, outs, parts, stream):
     """Launch the kernel into outputs given as device pointers: `outs` and
     `parts` are 4 each (v1, i1, v2, i2), None where unused; item_bias is
-    [I] or None. bf16 inputs take the mma route with `mma_plan`'s depth,
-    ring and shared memory, fp32 inputs the CUDA-core route with
-    `f32_plan`'s ring and shared memory for this `n_split`. K3's bound
-    pass calls this on its own workspace."""
+    [I] or None. bf16 tables that `tma_route` admits take the TMA route
+    with `tma_plan`'s ring and grid, which balances its own blocks and
+    writes `outs` directly (`n_split` and `parts` unused), other bf16 tables
+    the mma route with `mma_plan`'s depth, ring and shared memory, fp32
+    inputs the CUDA-core route with `f32_plan`'s ring and shared memory
+    for this `n_split`. K3's bound pass calls this on its own
+    workspace."""
     B, D = user_vecs.shape
     I = item_table.shape[0]
     bf16 = user_vecs.dtype == torch.bfloat16
+    if tma_route(item_table.dtype, D, item_table.data_ptr()):
+        dev = user_vecs.device
+        tp = tma_plan(B, I, D, bucket, _sm_count(dev))
+        err = _kernel_fn("openrec_bucket_max_tma")(
+            user_vecs.data_ptr(), None if item_bias is None
+            else item_bias.data_ptr(), _tma_map(item_table), int(top2), B, I,
+            D, bucket, L, tp.chunks, tp.stages, tp.smem, tp.grid, *outs,
+            *_tma_scratch(dev, stream, top2, tp), stream)
+        if err != 0:
+            raise RuntimeError(f"bucket_max TMA kernel launch failed: CUDA "
+                               f"error {err}")
+        trace.count(TMA_LAUNCHES)
+        return
     if bf16:
         mp = mma_plan(B, I, D, bucket, top2)
         plan = (mp.Dp, mp.stages, mp.smem)

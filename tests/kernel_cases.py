@@ -52,6 +52,8 @@ LASTFM = dict(name="lastfm", dim=32, dtype="float32",
 NETFLIX = dict(name="netflix", users=480_189, items=17_770, dim=20,
                dtype="float32")
 BATCH, K, REQUESTS = 256, 100, 8
+# the users of one `bpr-amazon.batch-k10` request (portbench/traffic)
+BATCH_K10 = 1024
 # the Amazon catalog's row shards over m = 2 and m = 4 ranks (pad_rows)
 SHARD2, SHARD4 = 225_083, 112_542
 # the LastFM catalog's row shards over m = 2 ranks (chip_smoke.py phase
@@ -162,11 +164,20 @@ def bucket_of(bt, v, bucket):
 def hold_k1k2(torch, bt, u, v, b, bucket, top2, what):
     """K1 (top2 False) or K2 held against its plain version on these card
     tensors by `compare_kernel`'s bars, ids equal but for near-ties, one
-    launch counted; returns (max_abs_err, tie id mismatches)."""
+    launch counted, and on the route `bt.tma_route` names: one TMA launch
+    counted (`openrec.bucket_max.tma_launches`) on the TMA route, none on
+    the others; returns (max_abs_err, tie id mismatches)."""
+    from openrec_tpu_torch import trace
     kernel = "K2" if top2 else "K1"
     before = launch_counts(kernels=(kernel,))
+    tma_before = trace.counter(bt.TMA_LAUNCHES)
     err, bad, ties = compare_kernel(torch, bt, u, v, b, bucket, top2)
     counted_once(kernel, before, what)
+    tma = bt.tma_route(v.dtype, v.shape[1], v.data_ptr())
+    if trace.counter(bt.TMA_LAUNCHES) - tma_before != int(tma):
+        fail(f"{what}: {trace.counter(bt.TMA_LAUNCHES) - tma_before} TMA "
+             f"launches counted where the route is "
+             f"{'TMA' if tma else 'not TMA'}")
     if bad:
         fail(f"{what}: {bad} {kernel} id mismatches that are not near-ties "
              f"(max |err| {err})")
@@ -245,6 +256,19 @@ K1K2_CASES = [
      ""),
     ("lastfm shard m=2 K2 shape", BATCH, LASTFM_SHARD2, 32, "float32", 4,
      ""),
+    # the TMA route (bf16, D a multiple of 8 up to 256, 16-byte aligned
+    # tables): `batch-k10`'s request (1,024 users at bucket 256, what its
+    # 512 shrinks to); a last group of 104 of 128 users; D = 40, whose 64-column
+    # swizzle box the map zero-fills past D; D = 256, four chunks a row;
+    # twins and zero pad rows at the bias -1e30 on the new route
+    ("batch-k10 K1 shape", BATCH_K10, AMAZON["items"], 64, "bfloat16", 256,
+     ""),
+    ("bf16 B=1000 ragged user group", 1000, 30_000, 64, "bfloat16", 16,
+     ""),
+    ("bf16 D=40 ragged swizzle box", 70, 20_000, 40, "bfloat16", 16, ""),
+    ("bf16 D=256", 64, 20_000, 256, "bfloat16", 16, ""),
+    ("bf16 D=40 twin members", 40, 30_000, 40, "bfloat16", 16, "twins"),
+    ("bf16 D=128 pad rows", 100, 12_345, 128, "bfloat16", 8, "pad2"),
 ]
 
 

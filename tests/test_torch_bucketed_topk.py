@@ -1,8 +1,9 @@
 """Port parity: the bucket-max kernels' plain PyTorch versions and
 `bucket_score_topk` against the JAX package's Pallas kernels (interpret
-mode on the CPU), on the same numpy inputs; and the launch plans of the
-kernels' bf16 tensor-core route (`mma_plan`) and fp32 CUDA-core route
-(`f32_plan`).
+mode on the CPU), on the same numpy inputs; the launch plans of the
+kernels' bf16 tensor-core routes (`tma_plan`, `mma_plan`) and fp32
+CUDA-core route (`f32_plan`); and which tables take the TMA route
+(`tma_route`).
 
 Tolerances: values rtol=atol=1e-5 (fp32 sums taken in another order);
 ids exact, except where the two picks score within 1e-5 of each other.
@@ -19,7 +20,8 @@ from openrec_tpu.ops.bucketed_topk import (
 import kernel_cases
 from openrec_tpu_torch.ops.bucketed_topk import (
     bucket_geometry, bucket_max2_scores, bucket_max_scores,
-    bucket_score_topk, choose_bucket, f32_plan, mma_plan)
+    bucket_score_topk, choose_bucket, f32_plan, mma_plan, tma_plan,
+    tma_route)
 from openrec_tpu_torch.ops.topk import fused_geometry
 
 torch.set_num_threads(1)
@@ -320,3 +322,152 @@ def test_serving_cases_sit_at_their_methods_buckets(case):
     top2 = "K2" in name
     assert bucket == choose_bucket(I, 100, recall_target=0.995 if top2
                                    else 0.99, per_bucket=2 if top2 else 1)
+
+
+@pytest.mark.parametrize("dtype,D,ptr,want", [
+    (torch.bfloat16, 64, 0x7f0000000000, True),
+    (torch.bfloat16, 8, 16, True),
+    (torch.bfloat16, 40, 48, True),
+    (torch.bfloat16, 256, 1 << 20, True),
+    (torch.bfloat16, 64, 0x7f0000000008, False),   # 8-byte aligned
+    (torch.bfloat16, 64, 0x7f0000000002, False),   # a view one element in
+    (torch.bfloat16, 100, 0x7f0000000000, False),  # 200-byte rows
+    (torch.bfloat16, 60, 0x7f0000000000, False),
+    (torch.bfloat16, 50, 0x7f0000000000, False),
+    (torch.bfloat16, 4, 0x7f0000000000, False),
+    (torch.bfloat16, 264, 0x7f0000000000, False),  # past four chunks
+    (torch.float32, 64, 0x7f0000000000, False),
+    (torch.float16, 64, 0x7f0000000000, False),
+])
+def test_tma_route(dtype, D, ptr, want):
+    """The TMA route is a function of dtype, D and the table's alignment
+    alone: bf16 rows of whole 16-byte chunks (D a multiple of 8, up to
+    256) starting on a 16-byte boundary."""
+    assert tma_route(dtype, D, ptr) is want
+
+
+def test_tma_route_of_the_card_cases():
+    """Every bf16 card case's layout takes the route its name says: the
+    aligned tables at D a multiple of 8 the TMA route, the views and D =
+    50, 60 and 100 `bucket_max_mma`."""
+    for name, _, _, D, dtype, _, layout in kernel_cases.K1K2_CASES:
+        if dtype != "bfloat16":
+            continue
+        aligned = layout not in ("row", "element")
+        assert tma_route(torch.bfloat16, D, 0 if aligned else 2) is (
+            D % 8 == 0 and D <= 256 and aligned), name
+
+
+# the bf16 shapes of the card cases that take the TMA route, then D x B x
+# bucket
+TMA_PLAN_CASES = [(B, I, D, bucket) for _, B, I, D, dtype, bucket, layout in
+                  kernel_cases.K1K2_CASES if dtype == "bfloat16"
+                  and D % 8 == 0 and layout not in ("row", "element")] + [
+    (B, 100_003, D, bucket) for D in (8, 40, 64, 128, 256)
+    for B in (1, 37, 256, 1000, 1024) for bucket in (1, 64, 256)]
+
+
+def _tma_ranges(steps, grid):
+    """The member steps each persistent block of the TMA route takes, in
+    the kernel's arithmetic: block c takes [c * steps // grid, (c + 1) *
+    steps // grid)."""
+    return [(c * steps // grid, (c + 1) * steps // grid)
+            for c in range(grid)]
+
+
+def _tma_parts(plan, B):
+    """The parts of the TMA route's blocks, as the kernel walks them: block
+    c takes its range of member steps (`_tma_ranges`) in order, each part
+    (block, unit, first member, end member), unit = (j * 2 + h) * n_ug +
+    ug."""
+    parts = []
+    for c, (first, last) in enumerate(_tma_ranges(plan.steps, plan.grid)):
+        pos = first
+        while pos < last:
+            unit, a0 = divmod(pos, plan.bucket)
+            a1 = min(plan.bucket, a0 + last - pos)
+            parts.append((c, unit, a0, a1))
+            pos += a1 - a0
+    return parts
+
+
+def _step_owner(p, steps, grid):
+    """The kernel's `step_owner`: the block whose range holds step p."""
+    return ((p + 1) * grid - 1) // steps
+
+
+@pytest.mark.parametrize("B,I,D,bucket", TMA_PLAN_CASES)
+def test_tma_plan(B, I, D, bucket):
+    """The TMA route's launch plan: the ring, the two user tiles and the
+    barriers fit the card's shared memory from a
+    1,024-byte boundary, the ring is 2 .. 12 deep and as deep as that
+    allows; the persistent blocks' ranges hold every member of every (grid
+    block j, lane half, user group of 128) exactly once, in member order
+    within a unit, no block holds more than one step above another, and
+    the kernel's owner arithmetic names a cut unit's parts and their
+    workspace slots, each slot written once."""
+    plan = tma_plan(B, I, D, bucket, sm_count=132)
+    assert (plan.bucket, plan.L) == bucket_geometry(I, D, 2, bucket)[::2]
+    assert plan.chunks == -(-D // 64) and plan.chunks * 64 >= D
+    tile = plan.chunks * 64 * 128
+    assert plan.smem == 1023 + (plan.stages + 2) * tile + 16 * plan.stages
+    assert plan.smem <= 232_448 and 2 <= plan.stages <= 12
+    assert plan.stages == 12 or plan.smem + tile + 16 > 232_448
+    n_j, n_ug = plan.L // 128, -(-B // 128)
+    assert plan.units == n_j * 2 * n_ug
+    assert plan.steps == plan.units * plan.bucket
+    assert plan.grid == min(132, plan.steps)
+    sizes = [b - a for a, b in _tma_ranges(plan.steps, plan.grid)]
+    assert sum(sizes) == plan.steps and max(sizes) - min(sizes) <= 1
+    assert plan.fill == pytest.approx(plan.steps / (132 * max(sizes)))
+    parts = _tma_parts(plan, B)
+    by_unit = {}
+    for c, unit, a0, a1 in parts:
+        by_unit.setdefault(unit, []).append((c, a0, a1))
+    assert sorted(by_unit) == list(range(plan.units))
+    slots = []
+    for unit, ps in by_unit.items():
+        # the members of the unit once each, in block order
+        assert ps[0][1] == 0 and ps[-1][2] == plan.bucket
+        assert all(e == b for (_, _, e), (_, b, _) in zip(ps, ps[1:]))
+        u_step = unit * plan.bucket
+        lo = _step_owner(u_step, plan.steps, plan.grid)
+        hi = _step_owner(u_step + plan.bucket - 1, plan.steps, plan.grid)
+        assert [c for c, _, _ in ps] == list(range(lo, hi + 1))
+        if len(ps) > 1:
+            for c, a0, _ in ps:
+                written = 2 * c + (0 if a0 > 0 else 1)
+                read = 2 * c + (0 if c * plan.steps // plan.grid > u_step
+                                else 1)
+                assert written == read
+                slots.append(written)
+    assert len(slots) == len(set(slots))
+    assert all(0 <= s < 2 * plan.grid for s in slots)
+    # every unit's (j, h, ug) once
+    assert {(u // n_ug >> 1, u // n_ug & 1, u % n_ug) for u in by_unit} == {
+        (j, h, ug) for j in range(n_j) for h in (0, 1) for ug in range(n_ug)}
+
+
+@pytest.mark.parametrize("what,B,k,target", [
+    ("batch-k10", 1024, 10, 0.99), ("serve-k1", 256, 100, 0.99)])
+def test_tma_plan_fills_the_serving_cells(what, B, k, target):
+    """At both serving cells' K1 shapes (the Amazon catalog, 450,166 x 64
+    bf16, `pallas` at recall 0.99) the 132 persistent blocks' rounds are
+    at least 90 % full: batch-k10 (1,024 users, bucket 256 after the
+    shrink rule, L 1,792: 224 units, 57,344 steps, 434 or 435 a block) and
+    serve-k1 (256 users, bucket 64, L 7,040: 220 units, 14,080 steps, 106
+    or 107 a block), where one unit a block in turn would fill 85 % and
+    83 %."""
+    I = kernel_cases.AMAZON["items"]
+    plan = tma_plan(B, I, 64, choose_bucket(I, k, recall_target=target),
+                    sm_count=132)
+    assert plan.fill >= 0.99 and plan.grid == 132 and plan.stages == 12
+    whole = plan.units * plan.bucket / (132 * -(-plan.units // 132)
+                                        * plan.bucket)
+    assert whole < 0.9
+
+
+@pytest.mark.parametrize("D", (0, 4, 50, 60, 100, 264, 384))
+def test_tma_plan_refuses_other_widths(D):
+    with pytest.raises(ValueError):
+        tma_plan(256, 10_000, D, 16)

@@ -141,13 +141,16 @@ def test_cpu_tensors_count_no_kernel_launch():
     def launches():
         return tuple(trace.counter(f"openrec.{k}.launches")
                      for k in ("k1", "k2", "k3", "sparse_adam",
-                               "view_grad"))
+                               "view_grad")) + (
+            trace.counter(bt.TMA_LAUNCHES),)
     before = launches()
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(500, 8)).astype(np.float32))
     bt.bucket_max_scores(u, v, None, bucket=2)
     bt.bucket_max2_scores(u, v, None, bucket=2)
+    # bf16 at D = 8: the TMA route's tables on a card
+    bt.bucket_max_scores(u.bfloat16(), v.bfloat16(), None, bucket=2)
     bt.bucket_score_topk(u, v, None, 10, recall_target=0.99, per_bucket=2)
     fused_score_topk(u, v, None, 10)
     mu, nu = torch.zeros_like(v), torch.zeros_like(v)
@@ -160,7 +163,7 @@ def test_cpu_tensors_count_no_kernel_launch():
     rows = v[:12].clone().requires_grad_()
     view_lookup(rows, pos).sum().backward()
     assert rows.grad[[4, 9]].any() and not rows.grad[0].any()
-    assert launches() == before == (0, 0, 0, 0, 0)
+    assert launches() == before == (0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["PMF", "WRMF", "GMF", "UCML",

@@ -5,14 +5,18 @@ their plain versions, and the serving path through
 
 Bars:
 - K1 and K2 at every case of `kernel_cases.K1K2_CASES` (bf16 on the
-  tensor-core route, fp32 on the CUDA-core route; a ragged catalog
-  tail, bucket 1, a split bucket range, B 37, tables whose rows start
-  8-, 4- or 2-byte aligned, twin bucket members, no bias, and the
-  serving shapes and row shards at the buckets their methods pick):
+  TMA route where `bucketed_topk.tma_route` admits the table, else on
+  `bucket_max_mma`, fp32 on the CUDA-core route; a ragged catalog
+  tail, bucket 1, a split bucket range, B 37 and 1,000, D 40 and 256,
+  tables whose rows start 8-, 4- or 2-byte aligned, twin bucket
+  members, zero pad rows, no bias, and the serving shapes, `batch-k10`'s
+  request and the row shards at the buckets their methods pick):
   values within rtol = atol = 1e-5, ids equal except where both picks
   score within that tolerance, K2's two slots compared as id sets,
   every id in its column's bucket; among twin members slot 1 keeps the
-  earlier and K2's slot 2 the twin; one launch counted a call;
+  earlier and K2's slot 2 the twin; one launch counted a call, and one
+  TMA launch (`openrec.bucket_max.tma_launches`) exactly where the
+  route is the TMA route;
 - K3 at every case of `kernel_cases.K3_CASES` (k 1 to 1,000 and k == I,
   B and I off the tiling, duplicated rows, tables off a 16-byte
   boundary, all-equal scores, a catalog of fewer than 8 * Kb items, the
